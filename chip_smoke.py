@@ -21,12 +21,32 @@ no result):
   7. profile  torch.profiler over one warm prefill and 8 decode steps:
               device busy share, the kernels that take the device time and
               the ops that launched them
-Then one JSON line describing every kernel (launches counted over phases
-4-5, the main path), the card's name and power limit, and the last line
-{"ok": true, "device": {...}}.
+  8. cold_scan the simulator's kernel against its plain version on the card,
+              exactly, in float32 and float64: the cases of the JAX
+              package's kernel tests, keep_warm per row, gaps within an f32
+              ulp, and the full-size case (B = T = 4096), timed beside the
+              plain version, the parallel (log-depth) version and the bound
+  9. sim      the batched simulator's torch backend at full size: the
+              Fig-4 DAG over the paper's platforms, all 256 placements x 16
+              seeds x 4096 requests: (a) sigma 0 equals the numpy backend
+              (atol 1e-9, f64); (b) calibrated spread: per-placement medians
+              and the pooled p99 within 1% of the numpy backend; (c) a cold
+              regime: the card's totals equal the CPU's on a reduced sweep;
+              (d) walls of first and warm calls (f32, f64), the numpy
+              backend's wall, the device busy share, 4 kernel launches per
+              call
+ 10. adapt    the recomposition scenario: a 3-step chain whose pA compute
+              degrades 5x mid-run, RecompositionController gated on
+              PlacementScorer(backend="torch"); the adaptive post-drift
+              median beats the static one by >= 25%
+Then one JSON line describing every kernel (launches counted over the main
+paths: serving and batching for flash_attention, the simulator and the
+recomposition phases for cold_scan), the card's name and power limit, and
+the last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import re
@@ -34,6 +54,7 @@ import statistics
 import subprocess
 import sys
 import time
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -50,7 +71,15 @@ from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core import (Deployment, ObjectStore, Platform,  # noqa: E402
                               PlatformRegistry, Prefetcher, StepSpec,
                               TensorSpec, WorkflowSpec, DataRef)
+from repro_torch.adapt import (  # noqa: E402
+    PlacementScorer, RecompositionController, TelemetryHub)
+from repro_torch.core import simulator as SIM  # noqa: E402
+from repro_torch.core import torchsim  # noqa: E402
+from repro_torch.core.shipping import PlacementCosts  # noqa: E402
+from repro_torch.dag import DagSpec, DagStep, document_dag_fig4  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.cold_scan import (  # noqa: E402
+    cold_scan, cold_scan_parallel, cold_scan_plain)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_plain)
 from repro_torch.models import model as M  # noqa: E402
@@ -65,6 +94,12 @@ TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 MAX_LEN = 1024
 NEW_TOKENS = 16
 BATCH_PROMPTS = (256, 512)  # continuous batching: prompt lengths drawn here
+KERNELS = ("flash_attention", "cold_scan")
+SIM_SEEDS = 16  # the full-size sweep: 16 seeds x 256 placements x 4096 requests
+SIM_REQUESTS = 4096
+COLD_SCAN_FULL = (4096, 4096)  # (B, T) of one node of that sweep
+COLD_SCAN_TOL = 0  # the mask must equal the plain version's: |got - want| <= 0
+ADAPT_REQUESTS = 1200
 
 
 def log(msg=""):
@@ -119,7 +154,7 @@ def phase_device() -> str:
 
 def phase_build():
     t0 = time.perf_counter()
-    paths = build.build_all(["flash_attention"])
+    paths = build.build_all(list(KERNELS))
     dt = time.perf_counter() - t0
     for name, path in paths.items():
         ptxas = build.build_logs.get(name, "")
@@ -455,10 +490,332 @@ def phase_profile(cfg, params, prompt):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 8: cold_scan against its plain version
+# ---------------------------------------------------------------------------
+def cold_case(g, B, T, interarrival, keep_warm, spread=0.3):
+    """The JAX package's kernel-test generator on the card (float64):
+    arrival times plus warm/cold end-time hypotheses around them."""
+    gaps = interarrival * (0.5 + torch.rand(T, generator=g, device=DEV,
+                                            dtype=torch.float64))
+    t0 = torch.cumsum(gaps, 0)
+    warm = t0[None, :] + spread * torch.rand(B, T, generator=g, device=DEV,
+                                             dtype=torch.float64)
+    cold = warm + spread * torch.rand(B, T, generator=g, device=DEV,
+                                      dtype=torch.float64)
+    return t0, warm, cold, keep_warm
+
+
+def cold_scan_bytes(B, T, dtype) -> int:
+    """t0, warm_end, cold_end and keep_warm read once, the bool mask
+    written once."""
+    esize = torch.tensor([], dtype=dtype).element_size()
+    return esize * (T + 2 * B * T + B) + B * T
+
+
+def scan_check(name, t0, warm, cold, kw, dtype):
+    args = [x.to(dtype).contiguous() for x in (t0, warm, cold)]
+    kwd = kw.to(dtype) if isinstance(kw, torch.Tensor) else kw
+    got = cold_scan(*args, kwd)
+    sync()
+    want = cold_scan_plain(*args, kwd)
+    diff = (got.to(torch.int8) - want.to(torch.int8)).abs()
+    bad = int(diff.sum())
+    err = int(diff.max()) if diff.numel() else 0
+    cold_share = float(want.float().mean())
+    log(f"[cold_scan] {name} {str(dtype)[6:]}: B={warm.shape[0]} T={warm.shape[1]} "
+        f"cold share {cold_share:.3f} mismatches {bad} max_abs_err {err} "
+        f"{'ok' if err <= COLD_SCAN_TOL else 'FAIL'}")
+    if err > COLD_SCAN_TOL:
+        raise AssertionError(f"cold_scan {name} {dtype}: {bad} mask entries "
+                             f"differ from the plain version")
+    return args, kwd, err
+
+
+def phase_cold_scan() -> dict:
+    g = torch.Generator(device=DEV).manual_seed(7)
+    cases = []
+    for B, T in ((1, 64), (3, 257), (130, 300)):
+        for ia, kw in ((1.0, 900.0), (10.0, 1.0), (1.0, 0.95), (1.0, float("inf"))):
+            cases.append((f"B={B} T={T} interarrival={ia} keep_warm={kw}",
+                          *cold_case(g, B, T, ia, kw)))
+    t0 = 0.7 * torch.arange(97, device=DEV, dtype=torch.float64)
+    warm = t0[None, :] + 0.02
+    cases.append(("flip-heavy", t0, warm, warm + 0.5, 0.6))
+    t0, warm, cold, _ = cold_case(g, 64, 300, 1.0, None)
+    kws = torch.linspace(0.5, 1.5, 64, device=DEV, dtype=torch.float64)
+    kws[::7] = float("inf")
+    cases.append(("keep_warm per row", t0, warm, cold, kws))
+    worst = 0
+    for name, t0, warm, cold, kw in cases:
+        for dtype in (torch.float32, torch.float64):
+            worst = max(worst, scan_check(name, t0, warm, cold, kw, dtype)[2])
+    # gaps within one f32 ulp of keep_warm: f64 must decide them in f64
+    t0 = 3.0 * torch.arange(64, device=DEV, dtype=torch.float64)
+    delta = torch.where(torch.rand(4, 64, generator=g, device=DEV) < 0.5, 1e-9, -1e-9)
+    warm = t0[None, :] + 2.0 - delta.double()
+    args, _, err = scan_check("f32-ulp gaps", t0, warm, warm + 0.5, 1.0,
+                              torch.float64)
+    worst = max(worst, err)
+    as_f32 = cold_scan(*[x.float() for x in args], 1.0)
+    want = cold_scan_plain(*args, 1.0)
+    if not bool((as_f32 != want).any()):
+        raise AssertionError("the f32-ulp case did not separate f32 from f64")
+
+    B, T = COLD_SCAN_FULL
+    t0, warm, cold, kw = cold_case(g, B, T, 1.0, 0.95)
+    res = {"shape": [B, T], "regime": "interarrival 1.0 s, keep_warm 0.95 s"}
+    for dtype in (torch.float32, torch.float64):
+        args, kwd, err = scan_check("full size", t0, warm, cold, kw, dtype)
+        worst = max(worst, err)
+        kw_rows = torch.full((B,), kw, dtype=dtype, device=DEV)
+        par = cold_scan_parallel(*args, kw_rows)
+        if not torch.equal(par, cold_scan_plain(*args, kw_rows)):
+            raise AssertionError("cold_scan_parallel disagrees at full size")
+        ms = device_ms(lambda: cold_scan(*args, kw_rows))
+        plain_ms = device_ms(lambda: cold_scan_plain(*args, kw_rows), runs=1, reps=3)
+        par_ms = device_ms(lambda: cold_scan_parallel(*args, kw_rows), runs=2, reps=5)
+        nbytes = cold_scan_bytes(B, T, dtype)
+        t_bytes = nbytes / HBM_BPS * 1e3
+        t_ops = 3 * B * T / PEAK_FLOPS[torch.float32] * 1e3  # sub, compare, select
+        bound = max(t_bytes, t_ops)
+        key = str(dtype)[6:]
+        res[key] = {"ms": ms, "plain_ms": plain_ms, "parallel_ms": par_ms,
+                    "bound_ms": bound,
+                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                    "bytes": nbytes, "max_abs_err": err,
+                    "tolerance": COLD_SCAN_TOL, "library_ms": None}
+        log(f"[cold_scan]   {key}: kernel {ms * 1e3:.1f} us | plain "
+            f"{plain_ms * 1e3:.1f} us | cold_scan_parallel {par_ms * 1e3:.1f} us | "
+            f"bound {bound * 1e3:.2f} us (bytes: {nbytes / 1e6:.1f} MB) | "
+            f"{bound / ms * 100:.1f}% of the bound | library: none")
+    res["max_abs_err"] = worst  # over every case, both dtypes
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the batched simulator at full size
+# ---------------------------------------------------------------------------
+def fig4_placements(steps):
+    """All 4^4 assignments of the Fig-4 DAG's steps to the paper's platforms."""
+    plats = [p.name for p in SIM.paper_platforms()]
+    return [tuple(replace(s, platform=p) for s, p in zip(steps, combo))
+            for combo in itertools.product(plats, repeat=len(steps))]
+
+
+def zero_sigma(steps):
+    return [replace(s, compute=SIM.Dist(s.compute.median, 0.0),
+                    fetch=SIM.Dist(s.fetch.median, 0.0)) for s in steps]
+
+
+def zero_platforms():
+    return [replace(p, cold_start=SIM.Dist(p.cold_start.median, 0.0))
+            for p in SIM.paper_platforms()]
+
+
+def numpy_sweep(sim, spec, placements):
+    """The numpy backend over the same sweep: one experiment per
+    placement (all seeds), (S, P, n)."""
+    return np.stack([sim.simulate(replace(spec, steps=p), backend="numpy")
+                     for p in placements], axis=1)
+
+
+def timed_sweep(sim, spec, placements, dtype):
+    t0 = time.perf_counter()
+    out = sim.simulate_placements(spec, placements, dtype=dtype, device=DEV)
+    return out, time.perf_counter() - t0
+
+
+def phase_sim() -> dict:
+    steps, edges = document_dag_fig4()
+    res = {}
+    n, seeds = SIM_REQUESTS, tuple(range(SIM_SEEDS))
+    sweeps = 0
+
+    # (a) sigma 0: no randomness survives, so the backends agree to 1e-9
+    zsteps = zero_sigma(steps)
+    zpl = fig4_placements(zsteps)
+    sim = SIM.WorkflowSimulator(zero_platforms(), seed=0)
+    spec = SIM.ExperimentSpec(zpl[0], edges=edges, n_requests=n, seeds=seeds)
+    got, wall = timed_sweep(sim, spec, zpl, np.float64)
+    sweeps += 1
+    want = numpy_sweep(sim, replace(spec, seeds=(0,)), zpl)
+    diff = float(np.abs(got - want).max())
+    log(f"[sim] (a) sigma 0: {len(seeds)} seeds x {len(zpl)} placements x {n} "
+        f"requests, f64 on {DEV} ({wall:.3f} s) vs numpy: max |diff| {diff:.3g}")
+    if not diff <= 1e-9:
+        raise AssertionError(f"sigma-0 totals differ from numpy by {diff}")
+    res["a_sigma0_max_abs_diff"] = diff
+
+    # (b) calibrated spread; (d) walls
+    pl = fig4_placements(steps)
+    sim = SIM.WorkflowSimulator(SIM.paper_platforms(), seed=0)
+    spec = SIM.ExperimentSpec(pl[0], edges=edges, n_requests=n, seeds=seeds)
+    walls = {}
+    for dt in (np.float64, np.float32):
+        name = np.dtype(dt).name
+        if DEV.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(DEV)
+        out, walls[f"{name}_first_s"] = timed_sweep(sim, spec, pl, dt)
+        out2, walls[f"{name}_warm_s"] = timed_sweep(sim, spec, pl, dt)
+        sweeps += 2
+        if not np.array_equal(out, out2):
+            raise AssertionError("the sweep is not deterministic")
+        if out.shape != (len(seeds), len(pl), n) or not np.isfinite(out).all():
+            raise AssertionError(f"bad sweep output {out.shape}")
+        if dt is np.float64:
+            got = out
+        peak = (torch.cuda.max_memory_allocated(DEV) / 1e9
+                if DEV.type == "cuda" else float("nan"))
+        log(f"[sim] (d) {name}: first call {walls[f'{name}_first_s']:.3f} s, "
+            f"warm call {walls[f'{name}_warm_s']:.3f} s, peak device memory "
+            f"{peak:.2f} GB")
+        walls[f"{name}_peak_gb"] = peak
+    t_np = time.perf_counter()
+    want = numpy_sweep(sim, spec, pl)
+    walls["numpy_s"] = time.perf_counter() - t_np
+    med_t, med_n = np.median(got, axis=(0, 2)), np.median(want, axis=(0, 2))
+    rel = np.abs(med_t / med_n - 1)
+    p99_t, p99_n = np.percentile(got, 99), np.percentile(want, 99)
+    p99_rel = abs(p99_t / p99_n - 1)
+    log(f"[sim] (b) calibrated: {len(pl)} placements, medians within "
+        f"{rel.max() * 100:.3f}% of numpy (worst placement), pooled p99 "
+        f"{p99_t:.4f} s vs {p99_n:.4f} s ({p99_rel * 100:.3f}%)")
+    log(f"[sim] (d) numpy backend, same sweep on this host: {walls['numpy_s']:.2f} s "
+        f"({walls['numpy_s'] / walls['float64_warm_s']:.1f}x the f64 warm call, "
+        f"{walls['numpy_s'] / walls['float32_warm_s']:.1f}x the f32 warm call)")
+    if not (rel <= 0.01).all() or p99_rel > 0.01 or len(pl) < 32:
+        raise AssertionError(f"torch vs numpy beyond 1%: medians {rel.max()}, "
+                             f"p99 {p99_rel}")
+    res.update({"b_median_max_rel": float(rel.max()), "b_p99_rel": p99_rel,
+                "walls": walls})
+
+    # (d) device busy share of one warm call, per dtype
+    for dt in (np.float64, np.float32):
+        wall, kernels, _ = _profiled(
+            lambda: sim.simulate_placements(spec, pl, dtype=dt, device=DEV))
+        sweeps += 1
+        busy = sum(kernels.values())
+        top = sorted(kernels.items(), key=lambda kv: -kv[1])[:4]
+        name = np.dtype(dt).name
+        log(f"[sim] (d) profile {name} warm call: wall {wall * 1e3:.2f} ms, device "
+            f"busy {busy * 1e3:.2f} ms ({100 * busy / wall:.1f}%)")
+        if not kernels:
+            log("[sim]   device time not measured: the profiler recorded no kernels")
+        for kname, ks in top:
+            log(f"[sim]   {ks * 1e3:8.3f} ms  {kname[:90]}")
+        res[f"profile_{name}"] = {"wall_s": wall, "device_busy_s": busy,
+                                  "top": [[k[:90], v] for k, v in top]}
+
+    # (c) a cold regime: the card's totals equal the CPU's (host-made draws)
+    kw = 3.5
+    cpl = pl[::16]
+    cold_plats = [replace(p, keep_warm_s=kw) for p in SIM.paper_platforms()]
+    csim = SIM.WorkflowSimulator(cold_plats, seed=0)
+    cspec = SIM.ExperimentSpec(cpl[0], edges=edges, n_requests=512,
+                               interarrival_s=6.0, seeds=(0, 1))
+    card, _ = timed_sweep(csim, cspec, cpl, np.float64)
+    sweeps += 1
+    order, _, preds, succs = SIM._spec_graph(cpl[0], edges)
+    host, sampled = torchsim.run_batched(
+        csim, order, [{s.name: s for s in p} for p in cpl], preds, succs,
+        np.arange(512) * 6.0, True, [0, 1], sample_idx=np.arange(512),
+        device="cpu")
+    share = float((sampled[1] > 0).mean())
+    cdiff = float(np.abs(card - host).max())
+    log(f"[sim] (c) cold regime (keep_warm {kw} s, interarrival 6 s): "
+        f"{len(cpl)} placements x 2 seeds x 512 requests, cold share {share:.3f}; "
+        f"card vs CPU f64 totals max |diff| {cdiff:.3g}")
+    if not 0.1 <= share <= 0.9:
+        raise AssertionError(f"cold share {share} outside 10-90%")
+    if not cdiff <= 1e-9:
+        raise AssertionError(f"card and CPU totals differ by {cdiff}")
+    res.update({"c_cold_share": share, "c_max_abs_diff": cdiff, "sweeps": sweeps,
+                "shape": [len(seeds), len(pl), n]})
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 10: recomposition under drift, gated on the torch scorer
+# ---------------------------------------------------------------------------
+ADAPT_PLATFORMS = [
+    SIM.SimPlatform("client", "edge", native_prefetch=True, allows_sync=True,
+                    cold_start=SIM.Dist(0.2, 0.2)),
+    SIM.SimPlatform("pA", "region-a", cold_start=SIM.Dist(0.8, 0.3)),
+    SIM.SimPlatform("pB", "region-b", cold_start=SIM.Dist(0.8, 0.3)),
+]
+ADAPT_WORK = {"pA": SIM.Dist(1.0, 0.05), "pB": SIM.Dist(1.3, 0.05)}
+ADAPT_SPEC = DagSpec((DagStep("ingest", "client"), DagStep("work", "pA"),
+                      DagStep("deliver", "client")),
+                     (("ingest", "work"), ("work", "deliver")), "adapt-bench")
+
+
+def adapt_costs() -> PlacementCosts:
+    """The static cost model, calibrated before the drift."""
+    compute = {("ingest", "client"): 0.04, ("deliver", "client"): 0.04,
+               ("work", "pA"): 1.0, ("work", "pB"): 1.3}
+    return PlacementCosts(
+        fetch_s=lambda name, p, deps: 0.0,
+        compute_s=lambda name, p: compute.get((name, p), 0.05),
+        transfer_s=lambda a, b, size: 0.001 if a == b else 0.6,
+        payload_size=1.5e6)
+
+
+def adapt_stream(n, drift, scorer=None, adaptive=True, seed=11):
+    """The JAX package's simulated adapt scenario (benchmarks/adapt_bench.py)
+    on the port: (totals, swaps, controller wall s)."""
+    hub = TelemetryHub(alpha=0.4)
+    sim = SIM.WorkflowSimulator(ADAPT_PLATFORMS, seed=seed,
+                                telemetry=hub if adaptive else None, drift=drift)
+    ctrl = RecompositionController(
+        hub, adapt_costs(), {"work": ["pA", "pB"]},
+        regions={"client": "edge", "pA": "region-a", "pB": "region-b"},
+        every_n=8, drift_ratio=1.4, min_samples=2, scorer=scorer)
+    spec, totals, swaps, ctrl_s = ADAPT_SPEC, np.empty(n), [], 0.0
+    for k in range(n):
+        wp = spec.node("work").platform
+        steps = [SIM.SimStep("ingest", "client", compute=SIM.Dist(0.04, 0.05)),
+                 SIM.SimStep("work", wp, compute=ADAPT_WORK[wp]),
+                 SIM.SimStep("deliver", "client", compute=SIM.Dist(0.04, 0.05))]
+        totals[k] = sim.run_request(steps, k * 1.0, prefetch=True).total_s
+        if adaptive:
+            t0 = time.perf_counter()
+            placement = ctrl.tick(spec)
+            ctrl_s += time.perf_counter() - t0
+            if placement is not None:
+                spec = spec.apply_placement(placement)
+                swaps.append((k, placement))
+    return totals, swaps, ctrl_s
+
+
+def phase_adapt() -> dict:
+    n = ADAPT_REQUESTS
+    drift = SIM.DriftSchedule([SIM.DriftEvent(n // 2, "pA", compute_scale=5.0)])
+    static, _, _ = adapt_stream(n, drift, adaptive=False)
+    scorer = PlacementScorer(quantile=0.9, backend="torch", device=DEV)
+    adaptive, swaps, ctrl_s = adapt_stream(n, drift, scorer=scorer)
+
+    def steady(t):
+        return float(np.median(t[-(len(t) // 4):]))
+
+    s_static, s_adapt = steady(static), steady(adaptive)
+    recovery = 1.0 - s_adapt / s_static
+    res = {"static_post_drift_s": s_static, "adaptive_post_drift_s": s_adapt,
+           "recovery": recovery, "swaps": [[k, p] for k, p in swaps],
+           "controller_wall_s": ctrl_s}
+    log(f"[adapt] {n} requests, pA compute x5 at {n // 2}: post-drift median "
+        f"static {s_static:.4f} s, adaptive {s_adapt:.4f} s (recovery "
+        f"{recovery * 100:.1f}%); swaps {swaps}; controller wall {ctrl_s:.3f} s")
+    if recovery < 0.25 or not swaps:
+        raise AssertionError(f"recomposition missed the 25% bar: {res}")
+    return res
+
+
 def main():
     smi = phase_device()
     phase_build()
     fa = phase_kernels()
+    cs = phase_cold_scan()
 
     cfg = get_config("qwen3-1.7b").replace(use_pallas=True)
     params = make_params(cfg)
@@ -484,7 +841,26 @@ def main():
 
     phase_checks(cfg, params, prompts[1])
     profile = phase_profile(cfg, params, prompts[0])
+    del params
+    torch.cuda.empty_cache()
 
+    # the simulator's path: 4 nodes, so one cold_scan launch per node per sweep
+    cold_scan.launches = 0
+    sim = phase_sim()
+    sim_launches = cold_scan.launches
+    log(f"[sim] cold_scan launches: {sim_launches} over {sim['sweeps']} sweeps "
+        f"on {DEV}")
+    if sim_launches != 4 * sim["sweeps"]:
+        raise AssertionError(f"{sim_launches} cold_scan launches != 4 per sweep")
+    # the recomposition path: the scorer's sweeps launch the kernel
+    cold_scan.launches = 0
+    adapt = phase_adapt()
+    adapt_launches = cold_scan.launches
+    log(f"[adapt] cold_scan launches: {adapt_launches}")
+    if adapt_launches == 0:
+        raise AssertionError("the torch scorer never launched cold_scan")
+
+    cs64, cs32 = cs["float64"], cs["float32"]
     kernels = [{
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -493,9 +869,22 @@ def main():
         "tolerance": fa["tolerance"], "ms": fa["ms"], "plain_ms": fa["plain_ms"],
         "bound_ms": fa["bound_ms"], "bound_by": fa["bound_by"],
         "library_ms": fa["library_ms"],
+    }, {
+        "name": "cold_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/cold_scan.cu",
+        "replaces": "src/repro/kernels/cold_scan.py:83",
+        "launches": sim_launches + adapt_launches, "dtype": "float64",
+        "shape": cs["shape"], "max_abs_err": cs["max_abs_err"],
+        "tolerance": COLD_SCAN_TOL, "ms": cs64["ms"],
+        "plain_ms": cs64["plain_ms"], "parallel_ms": cs64["parallel_ms"],
+        "bound_ms": cs64["bound_ms"], "bound_by": cs64["bound_by"],
+        "library_ms": None,
+        "float32": {k: cs32[k] for k in ("ms", "plain_ms", "parallel_ms",
+                                         "bound_ms", "bound_by")},
     }]
     log(json.dumps({"serving": {"requests": requests, "batching": batching,
                                 "profile": profile}}))
+    log(json.dumps({"sim": sim, "adapt": adapt, "cold_scan": cs}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

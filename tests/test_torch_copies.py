@@ -148,3 +148,144 @@ def test_registry_lists_only_ported_configs():
     assert treg.ARCH_IDS == ("qwen3-1.7b",)
     with pytest.raises(KeyError):
         treg.get_config("mamba2-370m")
+
+
+# ---------------------------------------------------------------------------
+# the simulator (scalar and numpy backends), dag.sim and adapt
+# ---------------------------------------------------------------------------
+import repro.adapt as jadapt  # noqa: E402
+import repro.core.simulator as jsim  # noqa: E402
+import repro.dag.sim as jdsim  # noqa: E402
+import repro.dag.spec as jspec  # noqa: E402
+import repro_torch.adapt as tadapt  # noqa: E402
+import repro_torch.core.simulator as tsim  # noqa: E402
+import repro_torch.dag.sim as tdsim  # noqa: E402
+import repro_torch.dag.spec as tspec  # noqa: E402
+
+SIM_PKGS = {"jax": (jsim, jdsim, jfaults), "torch": (tsim, tdsim, tfaults)}
+
+
+def _sim_case(pkg, case):
+    S, D, F = SIM_PKGS[pkg]
+    plats, sim_kw, spec_kw = S.paper_platforms(), {}, {}
+    steps, edges = S.document_workflow_fig4(), None
+    if case == "dag_fig4":
+        steps, edges = D.document_dag_fig4()
+    elif case == "diamond":
+        steps = [S.SimStep("a", "tinyfaas-edge", compute=S.Dist(0.2)),
+                 S.SimStep("b", "gcf", compute=S.Dist(0.3), fetch=S.Dist(0.4)),
+                 S.SimStep("c", "lambda-us-east-1", compute=S.Dist(0.5),
+                           fetch=S.Dist(0.6), prefetch=False),
+                 S.SimStep("d", "lambda-eu-central-1", compute=S.Dist(0.25),
+                           fetch=S.Dist(0.9))]
+        edges = [("a", "b"), ("a", "c"), ("b", "d"), ("c", "d")]
+    elif case == "drift":
+        sim_kw["drift"] = S.DriftSchedule([
+            S.DriftEvent(10, "gcf", compute_scale=3.0, transfer_scale=2.0,
+                         fetch_scale=1.5),
+            S.DriftEvent(25, "lambda-us-east-1", transfer_scale=4.0)])
+    elif case == "stream8":
+        spec_kw["stream"] = S.StreamConfig(chunks=8)
+    elif case == "faults":
+        spec_kw["faults"] = F.FaultSchedule([
+            F.FaultEvent("gcf", p_error=0.3, from_request=5, to_request=30),
+            F.OutageEvent(from_request=10, to_request=20,
+                          platform="lambda-us-east-1")], seed=7)
+        spec_kw["retry"] = F.RetryPolicy(max_attempts=3, backoff_base_s=0.05)
+    elif case == "cold":
+        plats = [dataclasses.replace(p, keep_warm_s=2.5) for p in plats]
+        spec_kw["interarrival_s"] = 3.0
+    sim = S.WorkflowSimulator(plats, seed=3, **sim_kw)
+    return sim, S.ExperimentSpec(steps, edges=edges, n_requests=48, **spec_kw)
+
+
+@pytest.mark.parametrize("backend", ["scalar", "numpy"])
+@pytest.mark.parametrize("case", ["chain_fig4", "dag_fig4", "diamond", "drift",
+                                  "stream8", "faults", "cold"])
+def test_simulator_backends_equal(case, backend):
+    outs = []
+    for pkg in ("jax", "torch"):
+        sim, spec = _sim_case(pkg, case)
+        one = sim.simulate(spec, backend=backend)
+        many = sim.simulate(dataclasses.replace(spec, seeds=(0, 5)), backend=backend)
+        outs.append((one, many))
+    assert np.array_equal(outs[0][0], outs[1][0])
+    assert np.array_equal(outs[0][1], outs[1][1])
+
+
+def test_simulator_request_traces_and_legacy_wrappers_equal():
+    res = []
+    for S, D in ((jsim, jdsim), (tsim, tdsim)):
+        sim = S.WorkflowSimulator(S.paper_platforms(), seed=1)
+        steps, edges = D.document_dag_fig4()
+        chain = sim.run_request(S.document_workflow_fig4(), 0.0, prefetch=True)
+        dag = sim.run_dag_request(steps, edges, 1.0, prefetch=False)
+        res.append((dataclasses.astuple(chain), dag.total_s, dag.end,
+                    sim.run_experiment(S.shipping_workflow_fig6("lambda-us-east-1"),
+                                       n_requests=20).tolist(),
+                    sim.run_experiment_many(S.native_prefetch_workflow_fig8(),
+                                            seeds=(1, 2), n_requests=10).tolist(),
+                    [dataclasses.asdict(s) for s in D.serialize_chain(steps, edges)]))
+        assert D.DagWorkflowSimulator is S.WorkflowSimulator
+    assert res[0] == res[1]
+
+
+def test_dag_sim_shapes_equal():
+    (js, je), (ts, te) = jdsim.document_dag_fig4(), tdsim.document_dag_fig4()
+    assert [dataclasses.asdict(s) for s in js] == [dataclasses.asdict(s) for s in ts]
+    assert je == te
+
+
+def _adapt_stream(pkg, n, drift_at):
+    """The simulated scenario of ``benchmarks/adapt_bench.py``: a 3-step
+    chain, pA's compute degraded 5x at ``drift_at``, a controller fed by
+    the simulator's telemetry ticking after every request."""
+    S, A, spec_mod = ((jsim, jadapt, jspec) if pkg == "jax"
+                      else (tsim, tadapt, tspec))
+    ship = jship if pkg == "jax" else tship
+    plats = [S.SimPlatform("client", "edge", native_prefetch=True,
+                           cold_start=S.Dist(0.2, 0.2)),
+             S.SimPlatform("pA", "region-a", cold_start=S.Dist(0.8, 0.3)),
+             S.SimPlatform("pB", "region-b", cold_start=S.Dist(0.8, 0.3))]
+    work = {"pA": S.Dist(1.0, 0.05), "pB": S.Dist(1.3, 0.05)}
+    compute = {("ingest", "client"): 0.04, ("deliver", "client"): 0.04,
+               ("work", "pA"): 1.0, ("work", "pB"): 1.3}
+    costs = ship.PlacementCosts(
+        fetch_s=lambda name, p, deps: 0.0,
+        compute_s=lambda name, p: compute.get((name, p), 0.05),
+        transfer_s=lambda a, b, size: 0.001 if a == b else 0.6,
+        payload_size=1.5e6)
+    hub = A.TelemetryHub(alpha=0.4)
+    sim = S.WorkflowSimulator(plats, seed=11, telemetry=hub, drift=S.DriftSchedule(
+        [S.DriftEvent(drift_at, "pA", compute_scale=5.0)]))
+    ctrl = A.RecompositionController(
+        hub, costs, {"work": ["pA", "pB"]},
+        regions={"client": "edge", "pA": "region-a", "pB": "region-b"},
+        every_n=8, drift_ratio=1.4, min_samples=2)
+    spec = spec_mod.DagSpec((spec_mod.DagStep("ingest", "client"),
+                             spec_mod.DagStep("work", "pA"),
+                             spec_mod.DagStep("deliver", "client")),
+                            (("ingest", "work"), ("work", "deliver")), "adapt")
+    totals, swaps, observed = [], [], []
+    for k in range(n):
+        wp = spec.node("work").platform
+        steps = [S.SimStep("ingest", "client", compute=S.Dist(0.04, 0.05)),
+                 S.SimStep("work", wp, compute=work[wp]),
+                 S.SimStep("deliver", "client", compute=S.Dist(0.04, 0.05))]
+        totals.append(sim.run_request(steps, k * 1.0, prefetch=True).total_s)
+        placement = ctrl.tick(spec)
+        if placement is not None:
+            spec = spec.apply_placement(placement)
+            swaps.append((k, placement))
+        if k % 16 == 0:
+            oc = A.observed_costs(hub, costs)
+            observed.append((oc.compute_s("work", "pA"), oc.compute_s("work", "pB"),
+                             oc.transfer_s("client", "pA", 1.5e6)))
+    return totals, swaps, dict(ctrl.stats), hub.snapshot(), observed
+
+
+def test_adapt_telemetry_costs_and_controller_decisions_equal():
+    j = _adapt_stream("jax", 120, 60)
+    t = _adapt_stream("torch", 120, 60)
+    assert j[1], "the drifted stream never recomposed"
+    assert j == t

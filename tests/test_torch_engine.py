@@ -36,8 +36,26 @@ def _deployment(pkg):
     return dep
 
 
-def _handlers(dep):
-    dep.deploy("head", lambda p, d: np.asarray(p, np.float32) + 1.0, ["edge-eu"])
+def _handlers(dep, spec=None):
+    """With ``spec``, the head returns only once every prefetching node of
+    ``spec`` has run its poke for this request. Pokes cascade on other
+    workers, and a head this short could otherwise deliver its payload
+    first and turn a prefetch into a cold fetch in one package only."""
+    calls = []
+    want = ([s.name for s in spec.steps if s.name != "head" and s.prefetch]
+            if spec is not None else [])
+
+    def head(p, d):
+        calls.append(None)
+        deadline = time.monotonic() + 10.0
+        while want and time.monotonic() < deadline:
+            pokes = dep.report()["engine"]["pokes"]
+            if all(pokes.get(v, 0) >= len(calls) for v in want):
+                break
+            time.sleep(0.001)
+        return np.asarray(p, np.float32) + 1.0
+
+    dep.deploy("head", head, ["edge-eu"])
     dep.deploy("left", lambda p, d: p * 2.0, ["cloud-us"])
     dep.deploy("right", lambda p, d: p @ np.asarray(d["emb/table"])[: p.shape[-1]],
                ["cloud-us"])
@@ -66,8 +84,8 @@ def _spec(pkg, kind, prefetch):
 
 def _run(pkg, kind, prefetch, n=2):
     with _deployment(pkg) as dep:
-        _handlers(dep)
         spec = _spec(pkg, kind, prefetch)
+        _handlers(dep, spec)
         payload = np.arange(8, dtype=np.float32)
         outs = [dep.run(spec, payload).outputs for _ in range(n)]
         rep = dep.report()
