@@ -7,17 +7,33 @@ no result):
   1. device   the card's name and power limit (nvidia-smi); TF32 off
   2. build    nvcc builds every CUDA kernel of the port from csrc/ into
               build/torch_kernels/ (one nvcc per source, all in parallel)
-  3. kernels  each kernel against its plain PyTorch version on the card,
-              at the serving path's shapes and a few edge cases; timings
-              (CUDA events over 20 back-to-back calls, median of 20) beside
-              the plain version, the library call and the bound
-  4. serving  qwen3-1.7b at full width (random weights from a seed, bf16):
-              3 requests through the federated prefill -> decode workflow
-              (Deployment over two platforms, KV cache shipped through the
+  3. kernels  each model kernel against its plain PyTorch version on the
+              card, at the serving path's shapes and edge cases:
+              flash_attention (qwen3's prefill shape, recurrentgemma's
+              local layers within and past the window), ssd_scan (the JAX
+              package's kernel-test cases in f32 and bf16, the serving
+              dtypes, Q == L), rglru_scan (the kernel-test cases, T = 300,
+              ragged W); timings (CUDA events over 20 back-to-back calls,
+              median of 20) beside the plain version, the library call or a
+              yardstick (torch.cumsum for rglru_scan), and the bound
+  Phases 4-7 run for qwen3-1.7b, mamba2-370m and recurrentgemma-9b in turn,
+  each at full width (random bf16 weights from seed 0), each model's
+  weights freed before the next loads:
+  4. serving  3 requests through the federated prefill -> decode workflow
+              (Deployment over two platforms, caches shipped through the
               object store); the decode step is pre-warmed by the poke
-  5. batching the same model under ServingEngine's continuous batching
-  6. checks   kernel-path against plain-path prefill logits; the
-              prefetcher's side-stream copy to the card, bit-exact
+  5. batching the same model under ServingEngine's continuous batching;
+              every kernel counter is set to 0 before phase 4 and read
+              after phase 5: each kernel launches once per layer of its
+              block kind per prefill, exactly
+  6. checks   kernel-path against plain-path prefill logits, in bf16
+              (bound: 2e-2 of the largest logit, or twice the plain path's
+              own move under an f32-rounding-sized perturbation of its
+              scans, whichever is larger) and in float32 (1e-4); for
+              recurrentgemma-9b a 2500-token prompt past its 2048-token
+              window, then 8 decode steps through the ring buffers, kernel
+              against plain path at every step; the prefetcher's
+              side-stream copy to the card, bit-exact
   7. profile  torch.profiler over one warm prefill and 8 decode steps:
               device busy share, the kernels that take the device time and
               the ops that launched them
@@ -40,9 +56,10 @@ no result):
               PlacementScorer(backend="torch"); the adaptive post-drift
               median beats the static one by >= 25%
 Then one JSON line describing every kernel (launches counted over the main
-paths: serving and batching for flash_attention, the simulator and the
-recomposition phases for cold_scan), the card's name and power limit, and
-the last line {"ok": true, "device": {...}}.
+paths: serving and batching of the three models for flash_attention,
+ssd_scan and rglru_scan, the simulator and the recomposition phases for
+cold_scan), the card's name and power limit, and the last line
+{"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -82,6 +99,10 @@ from repro_torch.kernels.cold_scan import (  # noqa: E402
     cold_scan, cold_scan_parallel, cold_scan_plain)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_plain)
+from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_plain  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain  # noqa: E402
+from repro_torch.models import griffin as GRIFFIN  # noqa: E402
+from repro_torch.models import ssm as SSM  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models.transformer import _is_spec, cache_defs, cast_params  # noqa: E402
 from repro_torch.models.tree import tree_leaves, tree_map  # noqa: E402
@@ -93,8 +114,9 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, no TF32
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 MAX_LEN = 1024
 NEW_TOKENS = 16
+SERVE_PROMPTS = (512, 300, 512)  # federated requests: cold, then warm
 BATCH_PROMPTS = (256, 512)  # continuous batching: prompt lengths drawn here
-KERNELS = ("flash_attention", "cold_scan")
+KERNELS = ("flash_attention", "cold_scan", "ssd_scan", "rglru_scan")
 SIM_SEEDS = 16  # the full-size sweep: 16 seeds x 256 placements x 4096 requests
 SIM_REQUESTS = 4096
 COLD_SCAN_FULL = (4096, 4096)  # (B, T) of one node of that sweep
@@ -227,7 +249,9 @@ def phase_kernels() -> dict:
     """flash_attention: (a) is the serving path's prefill shape (qwen3-1.7b,
     512-token prompt), timed; (b) its 300-token prompt; (c), (d) GQA with a
     window and MQA with T != S, in float32; (e)-(k) the other head_dims of
-    both dtypes, ragged lengths and windows with and without causality."""
+    both dtypes, ragged lengths and windows with and without causality;
+    (l), (m) recurrentgemma-9b's local layers (MQA, d=256, window 2048)
+    within the window and past it."""
     main = flash_case("(a) main path", 1, 512, 512, 16, 8, 128, torch.bfloat16,
                       True, None, seed=1, timed=True)
     cases = (("(b) ragged", 1, 300, 300, 16, 8, 128, torch.bfloat16, True, None),
@@ -246,10 +270,175 @@ def phase_kernels() -> dict:
              ("(i) ragged", 1, 100, 77, 4, 2, 256, torch.float32, True, 40),
              ("(j) non-causal window", 1, 64, 64, 2, 1, 16, torch.float32,
               False, 8),
-             ("(k) ragged", 1, 65, 65, 4, 2, 32, torch.float32, True, None))
+             ("(k) ragged", 1, 65, 65, 4, 2, 32, torch.float32, True, None),
+             # recurrentgemma-9b's local layers: MQA, d=256, window 2048,
+             # within the window and past it
+             ("(l) local layer", 1, 512, 512, 16, 1, 256, torch.bfloat16,
+              True, 2048),
+             ("(m) window binds", 1, 2500, 2500, 16, 1, 256, torch.bfloat16,
+              True, 2048))
     for seed, args in enumerate(cases, start=2):
         flash_case(*args, seed=seed)
     return main
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: the recurrent families' scans against their plain versions
+# ---------------------------------------------------------------------------
+def _esize(dtype) -> int:
+    return torch.tensor([], dtype=dtype).element_size()
+
+
+def _close(got, want, tol):
+    """(max abs error, ok): finite and within atol = rtol = tol."""
+    err = (got.float() - want.float()).abs().max().item() if got.numel() else 0.0
+    ok = bool(torch.isfinite(got).all()) and torch.allclose(
+        got.float(), want.float(), atol=tol, rtol=tol)
+    return err, ok
+
+
+def ssd_inputs(B, L, H, P, N, dtype, dt_dtype, alog_dtype, seed):
+    """The JAX package's kernel-test generator on the card: x, B, C normal,
+    dt = softplus(normal), A_log = log U(1, 8)."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    x = torch.randn(B, L, H, P, generator=g, device=DEV).to(dtype)
+    dt = F.softplus(torch.randn(B, L, H, generator=g, device=DEV)).to(dt_dtype)
+    alog = torch.log(1.0 + 7.0 * torch.rand(H, generator=g, device=DEV)).to(alog_dtype)
+    Bm = torch.randn(B, L, N, generator=g, device=DEV).to(dtype)
+    Cm = torch.randn(B, L, N, generator=g, device=DEV).to(dtype)
+    return x, dt, alog, Bm, Cm
+
+
+def ssd_work(B, L, H, P, N, Q, dtype, dt_dtype):
+    """(bytes, flops) the function needs: inputs read once, y and the f32
+    state written once; flops at 2 per multiply-add, the fewer of two forms.
+    Chunked: per chunk the causal halves of C·Bᵀ (shared by the heads) and
+    of the intra-chunk product, and the state update; the inter-chunk term
+    C_t·h only from the second chunk on (the first starts from zero).
+    Recurrent: per step, head and state element one multiply-add for the
+    update and one for y = C·h."""
+    nbytes = (_esize(dtype) * (2 * B * L * H * P + 2 * B * L * N)
+              + _esize(dt_dtype) * (B * L * H + H) + 4 * B * H * P * N)
+    nc, tri = L // Q, Q * (Q + 1) // 2
+    chunked = 2 * B * (nc * (tri * N + tri * H * P + Q * H * P * N)
+                       + (nc - 1) * Q * H * P * N)
+    recurrent = 4 * B * L * H * P * N
+    return nbytes, min(chunked, recurrent)
+
+
+def ssd_case(name, B, L, H, P, N, Q, dtype, dt_dtype, alog_dtype, tol, seed,
+             timed=False):
+    args = ssd_inputs(B, L, H, P, N, dtype, dt_dtype, alog_dtype, seed)
+    y, st = ssd_scan(*args, Q)
+    sync()
+    yw, sw = ssd_scan_plain(*args, Q)
+    ey, oky = _close(y, yw, tol)
+    es, oks = _close(st, sw, tol)
+    ok = oky and oks and y.dtype == dtype and st.dtype == torch.float32
+    log(f"[ssd_scan] {name}: B={B} L={L} H={H} P={P} N={N} Q={Q} x/B/C "
+        f"{str(dtype)[6:]} dt {str(dt_dtype)[6:]} A_log {str(alog_dtype)[6:]}: "
+        f"max_abs_err y {ey:.3g} state {es:.3g} atol=rtol={tol:g} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"ssd_scan {name} disagrees with its plain version")
+    res = {"max_abs_err": max(ey, es), "tolerance": tol}
+    if timed:
+        res["ms"] = device_ms(lambda: ssd_scan(*args, Q))
+        res["plain_ms"] = device_ms(lambda: ssd_scan_plain(*args, Q), runs=2, reps=5)
+        nbytes, flops = ssd_work(B, L, H, P, N, Q, dtype, dt_dtype)
+        t_bytes = nbytes / HBM_BPS * 1e3
+        t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3  # f32 products (G, h)
+        res.update(bound_ms=max(t_bytes, t_ops), library_ms=None,
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   bytes=nbytes, flops=flops)
+        log(f"[ssd_scan]   kernel {res['ms'] * 1e3:.1f} us | plain "
+            f"{res['plain_ms'] * 1e3:.1f} us | bound {res['bound_ms'] * 1e3:.2f} us "
+            f"({res['bound_by']}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.4f} GFLOP "
+            f"at the f32 rate) | {res['bound_ms'] / res['ms'] * 100:.1f}% of the "
+            f"bound | library: none")
+    return res
+
+
+def phase_ssd_scan() -> dict:
+    """ssd_scan: the cases of the JAX package's kernel tests in f32 and bf16
+    (dt in x's dtype, A_log f32), Q == L, the serving dtypes (x, dt, A_log,
+    B, C all bf16: every mamba2 layer is a cycled layer, so cast_params
+    casts its stacked A_log too), and the main path's shape (mamba2-370m,
+    a 512-token prompt), timed. Tolerance atol = rtol: 2e-2 in bf16 (y is
+    rounded to bf16 on both sides), 1e-4 in f32. Both versions sum the
+    prefix sums of a·dt in f64, so they decay by the same exponents."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    worst = 0.0
+    seed = 20
+    for B, L, H, P, N, Q in ((1, 64, 2, 16, 8, 16), (2, 128, 4, 32, 16, 32),
+                             (1, 96, 3, 16, 8, 32)):
+        for dtype in (f32, bf16):
+            tol = TOL[dtype]
+            r = ssd_case("(test_kernels)", B, L, H, P, N, Q, dtype, dtype, f32,
+                         tol, seed)
+            worst, seed = max(worst, r["max_abs_err"]), seed + 1
+    for name, args in (("(Q == L)", (1, 64, 2, 16, 8, 64, f32, f32, f32, TOL[f32])),
+                       ("(serving dtypes)", (2, 128, 3, 32, 16, 32, bf16, bf16, bf16,
+                                             TOL[bf16])),
+                       ("(main shape, f32)", (1, 512, 32, 64, 128, 256, f32, f32,
+                                              f32, TOL[f32]))):
+        r = ssd_case(name, *args, seed=seed)
+        worst, seed = max(worst, r["max_abs_err"]), seed + 1
+    main = ssd_case("(a) main path", 1, 512, 32, 64, 128, 256, bf16, bf16, bf16,
+                    TOL[bf16], seed=seed, timed=True)
+    main["max_abs_err"] = max(worst, main["max_abs_err"])
+    return main
+
+
+def rglru_bytes(B, T, W) -> int:
+    """log_a and b read once, y and h_last written once (float32)."""
+    return 4 * (3 * B * T * W + B * W)
+
+
+def phase_rglru_scan() -> dict:
+    """rglru_scan: the cases of the JAX package's kernel tests, T = 300 (no
+    chunk multiple: the TPU kernel refuses it), and the main path's shape
+    (recurrentgemma-9b, a 512-token prompt), timed. Tolerance atol = rtol =
+    1e-5, the JAX package's own."""
+    g = torch.Generator(device=DEV).manual_seed(30)
+    tol = 1e-5
+    worst = 0.0
+    res = {}
+    for name, (B, T, W) in (("(test_kernels)", (1, 64, 32)),
+                            ("(test_kernels)", (2, 128, 64)),
+                            ("(test_kernels)", (1, 256, 16)),
+                            ("(T = 300)", (1, 300, 4096)),
+                            ("(ragged W, T = 1)", (3, 1, 100)),
+                            ("(a) main path", (1, 512, 4096))):
+        log_a = -F.softplus(torch.randn(B, T, W, generator=g, device=DEV))
+        b = torch.randn(B, T, W, generator=g, device=DEV)
+        y, h = rglru_scan(log_a, b)
+        sync()
+        yw, hw = rglru_scan_plain(log_a, b)
+        ey, oky = _close(y, yw, tol)
+        eh, okh = _close(h, hw, tol)
+        ok = oky and okh
+        worst = max(worst, ey, eh)
+        log(f"[rglru_scan] {name}: B={B} T={T} W={W}: max_abs_err y {ey:.3g} "
+            f"h_last {eh:.3g} tol {tol:g} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"rglru_scan {name} disagrees with its plain version")
+    res["ms"] = device_ms(lambda: rglru_scan(log_a, b))
+    res["plain_ms"] = device_ms(lambda: rglru_scan_plain(log_a, b), runs=2, reps=5)
+    # yardstick: a library scan over the same (B, T, W) f32 tensor
+    res["yardstick_ms"] = device_ms(lambda: torch.cumsum(b, dim=1))
+    nbytes = rglru_bytes(B, T, W)
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_ops = 4 * B * T * W / PEAK_FLOPS[torch.float32] * 1e3  # exp, mul, add
+    res.update(bound_ms=max(t_bytes, t_ops), library_ms=None, bytes=nbytes,
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               max_abs_err=worst, tolerance=tol, shape=[B, T, W])
+    log(f"[rglru_scan]   kernel {res['ms'] * 1e3:.1f} us | plain (log-depth) "
+        f"{res['plain_ms'] * 1e3:.1f} us | torch.cumsum (yardstick) "
+        f"{res['yardstick_ms'] * 1e3:.1f} us | bound {res['bound_ms'] * 1e3:.2f} us "
+        f"(bytes: {nbytes / 1e6:.1f} MB) | {res['bound_ms'] / res['ms'] * 100:.1f}% "
+        f"of the bound | library: none")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -399,19 +588,90 @@ def phase_batching(cfg, params):
 # ---------------------------------------------------------------------------
 # phase 6: checks off the counted path
 # ---------------------------------------------------------------------------
+NOISE = 1e-7  # relative perturbation of a scan's output: about one f32 ulp
+NOISE_SEEDS = (5, 6, 7, 8)  # the floor is the largest move over these draws
+
+
+def _perturbed_scans(seed):
+    """The plain scans (``ssd_chunked``, ``lru_scan``) with their outputs
+    multiplied by 1 + NOISE * normal: a change of the size of an f32
+    rounding. Returns a function that restores them."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    saved = {(mod, name): getattr(mod, name)
+             for mod, name in ((SSM, "ssd_chunked"), (GRIFFIN, "lru_scan"))}
+
+    def wrap(fn):
+        def noisy(x, *args, **kw):
+            # the scan computes in f32 whatever x's dtype; ask for its f32
+            # output, so the noise lands before the rounding to x's dtype
+            y, h = fn(x.float(), *args, **kw)
+            noise = torch.randn(y.shape, generator=g, device=y.device)
+            return (y * (1 + NOISE * noise)).to(x.dtype), h
+        return noisy
+    for (mod, name), fn in saved.items():
+        setattr(mod, name, wrap(fn))
+
+    def restore():
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+    return restore
+
+
 def phase_checks(cfg, params, prompt):
+    """Kernel-path against plain-path prefill logits, in the serving dtype
+    and in float32 (the same bf16 weights cast up, exactly).
+
+    bf16: the same greedy token, and logits within TOL[bf16] of the largest
+    logit or, where the plain path itself moves further when its scans'
+    outputs are perturbed by an f32 rounding (NOISE, the largest move over
+    NOISE_SEEDS), within twice that floor: a bf16 model whose roundings
+    cascade through its layers cannot agree closer with any other
+    implementation. float32 has no such cascade and is held to TOL[f32]."""
     tokens = torch.as_tensor(prompt, device=DEV)[None]
+    plain_cfg = cfg.replace(use_pallas=False)
     k_logits, _ = M.prefill(cfg, params, {"tokens": tokens})
-    p_logits, _ = M.prefill(cfg.replace(use_pallas=False), params, {"tokens": tokens})
+    p_logits, _ = M.prefill(plain_cfg, params, {"tokens": tokens})
+    moves = []
+    for seed in NOISE_SEEDS:
+        restore = _perturbed_scans(seed)
+        try:
+            n_logits, _ = M.prefill(plain_cfg, params, {"tokens": tokens})
+        finally:
+            restore()
+        moves.append((n_logits - p_logits).abs().max().item())
     sync()
     diff = (k_logits - p_logits).abs().max().item()
+    floor = max(moves)
     scale = p_logits.abs().max().item()
+    bound = max(TOL[torch.bfloat16] * scale, 2 * floor)
+    k_tok, p_tok = greedy(k_logits), greedy(p_logits)
     log(f"[checks] prefill logits kernel vs plain path (prompt {len(prompt)}): "
         f"max_abs_diff={diff:.4g} max_abs_logit={scale:.4g} "
-        f"argmax {greedy(k_logits)} vs {greedy(p_logits)}")
-    if not diff <= TOL[torch.bfloat16] * scale:
+        f"argmax {k_tok} vs {p_tok}; plain path under {NOISE:g} relative "
+        f"noise in its scans moves {', '.join(f'{m:.4g}' for m in moves)} "
+        f"(seeds {NOISE_SEEDS}); bound {bound:.4g}")
+    if k_tok != p_tok:
+        raise AssertionError(f"kernel-path greedy token {k_tok} != plain "
+                             f"path's {p_tok}")
+    if not diff <= bound:
         raise AssertionError(f"kernel-path logits differ from the plain path: "
-                             f"{diff} > {TOL[torch.bfloat16]} * {scale}")
+                             f"{diff} > max({TOL[torch.bfloat16]} * {scale}, "
+                             f"2 * {floor})")
+
+    f32 = tree_map(lambda t: t.float(), params)
+    f32_cfg = cfg.replace(compute_dtype="float32")
+    k32, _ = M.prefill(f32_cfg, f32, {"tokens": tokens})
+    p32, _ = M.prefill(f32_cfg.replace(use_pallas=False), f32, {"tokens": tokens})
+    sync()
+    del f32
+    torch.cuda.empty_cache()
+    diff32 = (k32 - p32).abs().max().item()
+    scale32 = p32.abs().max().item()
+    log(f"[checks] float32 (the same weights): max_abs_diff={diff32:.4g} "
+        f"max_abs_logit={scale32:.4g} tol {TOL[torch.float32]:g} x max logit")
+    if not diff32 <= TOL[torch.float32] * scale32:
+        raise AssertionError(f"float32 kernel-path logits differ from the plain "
+                             f"path: {diff32} > {TOL[torch.float32]} * {scale32}")
 
     store = ObjectStore()
     host = np.random.default_rng(2).standard_normal((4096, 4096)).astype(np.float32)
@@ -811,38 +1071,120 @@ def phase_adapt() -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# the serving paths of the three models
+# ---------------------------------------------------------------------------
+MODEL_KERNELS = {"flash_attention": flash_attention, "ssd_scan": ssd_scan,
+                 "rglru_scan": rglru_scan}
+WINDOW_PROMPT = 2500  # recurrentgemma-9b: past its 2048-token window
+WINDOW_DECODE = 8
+
+
+def launches_per_prefill(cfg) -> dict:
+    """One launch per layer of the kernel's block kind."""
+    kinds = cfg.layer_kinds()
+    return {"flash_attention": sum(k in ("global", "local") for k in kinds),
+            "ssd_scan": kinds.count("ssd"), "rglru_scan": kinds.count("rglru")}
+
+
+def launch_counts() -> dict:
+    return {n: k.launches for n, k in MODEL_KERNELS.items()}
+
+
+def phase_window(cfg, params):
+    """A prompt past the local layers' window: prefill's flash_attention
+    masks by the window at d=256, the local caches come back as ring
+    buffers, and decode writes past the ring's wrap. Kernel-path against
+    plain-path logits at prefill and at every decode step (fed the same
+    tokens)."""
+    rng = np.random.default_rng(3)
+    prompt = rng.integers(1, cfg.vocab_size, size=WINDOW_PROMPT).astype(np.int32)
+    tokens = torch.as_tensor(prompt, device=DEV)[None]
+    max_len = WINDOW_PROMPT + WINDOW_DECODE
+    paths = {}
+    for name, c in (("kernel", cfg), ("plain", cfg.replace(use_pallas=False))):
+        logits, caches = M.prefill(c, params, {"tokens": tokens})
+        caches = pad_cache(caches, max_len, WINDOW_PROMPT, cfg=c)
+        paths[name] = [c, caches, [logits]]
+    ring = [t.shape[2] for t in tree_leaves(paths["kernel"][1]["cycle"]["p2"])]
+    if ring != [cfg.local_window] * 2:
+        raise AssertionError(f"local caches are not {cfg.local_window}-slot ring "
+                             f"buffers: {ring}")
+    tok = greedy(paths["kernel"][2][0])
+    for i in range(WINDOW_DECODE):
+        t = torch.tensor([[tok]], dtype=torch.int32, device=DEV)
+        for c, caches, out in paths.values():
+            out.append(M.decode_step(c, params, t, caches, WINDOW_PROMPT + i)[0])
+        tok = greedy(paths["kernel"][2][-1])
+    sync()
+    worst = 0.0
+    for i, (k, p) in enumerate(zip(paths["kernel"][2], paths["plain"][2])):
+        diff = (k - p).abs().max().item()
+        scale = p.abs().max().item()
+        worst = max(worst, diff / scale)
+        if not diff <= TOL[torch.bfloat16] * scale:
+            raise AssertionError(f"window check, step {i}: kernel-path logits "
+                                 f"differ from the plain path: {diff} > "
+                                 f"{TOL[torch.bfloat16]} * {scale}")
+    log(f"[checks] window: prompt {WINDOW_PROMPT} > window {cfg.local_window}, "
+        f"ring buffers of {ring[0]} slots, prefill + {WINDOW_DECODE} decode steps "
+        f"(positions {WINDOW_PROMPT}..{WINDOW_PROMPT + WINDOW_DECODE - 1}, ring "
+        f"slots {WINDOW_PROMPT % cfg.local_window}..): kernel vs plain logits, "
+        f"worst max_abs_diff / max_abs_logit {worst:.4g} (tol "
+        f"{TOL[torch.bfloat16]:g}) ok")
+    return {"prompt": WINDOW_PROMPT, "decode_steps": WINDOW_DECODE,
+            "worst_rel_diff": worst}
+
+
+def serve_model(arch) -> dict:
+    """The serving path of one model at full width: the federated workflow
+    and continuous batching with every kernel counter at 0 just before and
+    read just after, then the checks and the profile off the counted path."""
+    cfg = get_config(arch).replace(use_pallas=True)
+    params = make_params(cfg)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32)
+               for n in SERVE_PROMPTS]
+    per_prefill = launches_per_prefill(cfg)
+
+    for k in MODEL_KERNELS.values():
+        k.launches = 0
+    requests = phase_federated(cfg, params, prompts)
+    fed = launch_counts()
+    batching = phase_batching(cfg, params)
+    total = launch_counts()
+    n_batched = batching["prefills"] + 1  # + the prewarm prefill
+    log(f"[serving] {arch} launches per prefill {per_prefill}: federated {fed} "
+        f"over {len(prompts)} prefills; batching "
+        f"{ {n: total[n] - fed[n] for n in total} } over {n_batched} prefills")
+    for n, want in per_prefill.items():
+        if fed[n] != want * len(prompts):
+            raise AssertionError(f"{arch}: {fed[n]} {n} launches != {want} per "
+                                 f"prefill over {len(prompts)} prefills")
+        if total[n] - fed[n] != want * n_batched:
+            raise AssertionError(f"{arch}: batched prefills did not each launch "
+                                 f"{n} {want} times")
+
+    phase_checks(cfg, params, prompts[1])
+    window = (phase_window(cfg, params) if "local" in cfg.block_pattern
+              else None)
+    profile = phase_profile(cfg, params, prompts[0])
+    del params
+    torch.cuda.empty_cache()
+    return {"arch": arch, "requests": requests, "batching": batching,
+            "profile": profile, "launches": total, "window": window}
+
+
 def main():
     smi = phase_device()
     phase_build()
     fa = phase_kernels()
+    ssd = phase_ssd_scan()
+    rg = phase_rglru_scan()
     cs = phase_cold_scan()
 
-    cfg = get_config("qwen3-1.7b").replace(use_pallas=True)
-    params = make_params(cfg)
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32)
-               for n in (512, 300, 512)]
-
-    # the main path: every launch counter at 0 just before, read just after
-    flash_attention.launches = 0
-    requests = phase_federated(cfg, params, prompts)
-    fed_launches = flash_attention.launches
-    batching = phase_batching(cfg, params)
-    launches = flash_attention.launches
-    per_prefill = cfg.num_layers
-    log(f"[serving] flash_attention launches: {fed_launches} over "
-        f"{len(prompts)} federated prefills, {launches - fed_launches} over "
-        f"{batching['prefills']} batched prefills + 1 prewarm prefill")
-    if fed_launches != per_prefill * len(prompts):
-        raise AssertionError(f"{fed_launches} launches != {per_prefill} per prefill")
-    if launches - fed_launches != per_prefill * (batching["prefills"] + 1):
-        raise AssertionError("batched prefills did not each launch the kernel "
-                             f"{per_prefill} times")
-
-    phase_checks(cfg, params, prompts[1])
-    profile = phase_profile(cfg, params, prompts[0])
-    del params
-    torch.cuda.empty_cache()
+    served = [serve_model(arch) for arch in
+              ("qwen3-1.7b", "mamba2-370m", "recurrentgemma-9b")]
 
     # the simulator's path: 4 nodes, so one cold_scan launch per node per sweep
     cold_scan.launches = 0
@@ -860,12 +1202,16 @@ def main():
     if adapt_launches == 0:
         raise AssertionError("the torch scorer never launched cold_scan")
 
+    def model_launches(name):
+        return sum(m["launches"][name] for m in served)
+
     cs64, cs32 = cs["float64"], cs["float32"]
     kernels = [{
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:88",
-        "launches": launches, "max_abs_err": fa["max_abs_err"],
+        "launches": model_launches("flash_attention"),
+        "max_abs_err": fa["max_abs_err"],
         "tolerance": fa["tolerance"], "ms": fa["ms"], "plain_ms": fa["plain_ms"],
         "bound_ms": fa["bound_ms"], "bound_by": fa["bound_by"],
         "library_ms": fa["library_ms"],
@@ -881,9 +1227,27 @@ def main():
         "library_ms": None,
         "float32": {k: cs32[k] for k in ("ms", "plain_ms", "parallel_ms",
                                          "bound_ms", "bound_by")},
+    }, {
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:71",
+        "launches": model_launches("ssd_scan"), "dtype": "bfloat16",
+        "shape": [1, 512, 32, 64, 128, 256], "max_abs_err": ssd["max_abs_err"],
+        "tolerance": ssd["tolerance"], "ms": ssd["ms"], "plain_ms": ssd["plain_ms"],
+        "bound_ms": ssd["bound_ms"], "bound_by": ssd["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "rglru_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+        "replaces": "src/repro/kernels/rglru_scan.py:49",
+        "launches": model_launches("rglru_scan"), "dtype": "float32",
+        "shape": rg["shape"], "max_abs_err": rg["max_abs_err"],
+        "tolerance": rg["tolerance"], "ms": rg["ms"], "plain_ms": rg["plain_ms"],
+        "yardstick_ms": rg["yardstick_ms"], "bound_ms": rg["bound_ms"],
+        "bound_by": rg["bound_by"], "library_ms": None,
     }]
-    log(json.dumps({"serving": {"requests": requests, "batching": batching,
-                                "profile": profile}}))
+    for m in served:
+        log(json.dumps({"serving": m}))
     log(json.dumps({"sim": sim, "adapt": adapt, "cold_scan": cs}))
     log(json.dumps({"kernels": kernels}))
     log(smi)

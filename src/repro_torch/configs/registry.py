@@ -14,6 +14,8 @@ from repro_torch.configs.base import (ArchConfig, SHAPES, ALL_SHAPES,  # noqa: F
 
 _MODULES = {
     "qwen3-1.7b": "repro_torch.configs.qwen3_1_7b",
+    "mamba2-370m": "repro_torch.configs.mamba2_370m",
+    "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
 }
 
 ARCH_IDS = tuple(_MODULES)

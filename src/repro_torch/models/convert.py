@@ -4,7 +4,8 @@ The JAX package's trees arrive as numpy arrays, as
 ``jax.tree_util.tree_map(np.asarray, tree)`` gives them. The port keeps the
 same nested keys and layouts (stacked ``wq`` ``(L, D, H, hd)``, ``wo``
 ``(L, H, hd, D)``, caches ``{"cycle": {"p0": (k, v)}}`` with k
-``(L, B, S, K, hd)``), so conversion is a copy of each leaf onto the
+``(L, B, S, K, hd)``, recurrent caches ``{"conv": ..., "state"/"h": ...}``),
+so conversion is a copy of each leaf onto the
 device, checked against the port's own definitions.
 """
 from __future__ import annotations
@@ -56,24 +57,36 @@ def params_from_jax(np_tree, cfg, device="cuda"):
 
 
 def caches_from_jax(np_tree, cfg, device="cuda"):
-    """The JAX package's KV caches (numpy leaves, tuples kept) as the port's.
+    """The JAX package's caches (numpy leaves, tuples kept) as the port's.
 
-    Batch and sequence capacity are read from the arrays and checked against
-    ``cache_defs`` at those sizes."""
+    Batch size and sequence capacity S are read from the arrays along the
+    axes that ``cache_defs`` names ``"batch"`` and ``"cache_seq"`` (recurrent
+    leaves have no ``cache_seq``; S is the largest ``cache_seq``); every leaf
+    is then checked against ``cache_defs`` at those sizes. A global layer
+    holds S slots; a local layer holds its ring buffer of min(window, S), or
+    S where a prompt no longer than the window was padded to S."""
     dev = check_device(device)
-    leaves = tree_leaves(np_tree)
-    if not leaves:
+    if not tree_leaves(np_tree):
         return {}
-    # (L, B, S, K, hd); ring buffers hold min(window, S), so S is the max
-    batch = np.shape(leaves[0])[1]
-    seq = max(np.shape(a)[2] for a in leaves)
-    defs = cache_defs(cfg, batch, seq)
-    if not _same_structure(defs, np_tree, _is_spec):
+    axes = cache_defs(cfg, 1, 1)
+    if not _same_structure(axes, np_tree, _is_spec):
         raise ValueError(f"cache tree does not match {cfg.name}'s cache layout")
+    pairs = []  # (logical axes, array shape) of every leaf
+    tree_map(lambda d, a: pairs.append((d.axes, np.shape(a))), axes, np_tree,
+             is_leaf=_is_spec)
+    batch = pairs[0][1][pairs[0][0].index("batch")]
+    seq = max((shape[ax.index("cache_seq")] for ax, shape in pairs
+               if "cache_seq" in ax), default=1)
+    defs = cache_defs(cfg, batch, seq)
 
     def conv(d, a):
         t = _tensor(a, dev)
-        if tuple(t.shape) != tuple(d.shape):
+        allowed = {tuple(d.shape)}
+        if "cache_seq" in d.axes:
+            padded = list(d.shape)
+            padded[d.axes.index("cache_seq")] = seq
+            allowed.add(tuple(padded))
+        if tuple(t.shape) not in allowed:
             raise ValueError(f"cache shape {tuple(t.shape)} != {d.shape}")
         return t
     return tree_map(conv, defs, np_tree, is_leaf=_is_spec)

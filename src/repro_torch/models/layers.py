@@ -49,6 +49,16 @@ def block_cfg_for(cfg, kind: str) -> BlockCfg:
     raise ValueError(kind)
 
 
+def promote(*ts):
+    """The tensors cast to their promoted dtype: JAX promotes mixed bf16/f32
+    operands of a contraction to f32, where ``torch.einsum`` and ``@``
+    refuse them."""
+    dt = ts[0].dtype
+    for t in ts[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return tuple(t.to(dt) for t in ts)
+
+
 # ---------------------------------------------------------------------------
 # norms / rope
 # ---------------------------------------------------------------------------

@@ -1,14 +1,13 @@
-"""The backbone (port of ``repro/models/transformer.py``, attention blocks).
+"""The backbone (port of ``repro/models/transformer.py``).
 
 A model is ``embed -> [blocks cycled from cfg.block_pattern] -> norm ->
-head``. Layers are grouped into *cycles* of ``len(block_pattern)`` whose
-parameters are stacked along a leading ``layers`` axis, exactly as in the
-JAX package; where that package scans the stack with ``jax.lax.scan``, the
-port runs a Python loop over the leading axis of the same stacked tensors.
-Remainder layers (``num_layers % pattern``) run unstacked.
-
-Only attention blocks ("global"/"local") are ported; "rglru" and "ssd"
-blocks raise ``NotImplementedError``.
+head``. Block kinds: "global"/"local" attention, "rglru" (griffin temporal
+mixing, ``models/griffin.py``) and "ssd" (mamba-2, ``models/ssm.py``). Layers
+are grouped into *cycles* of ``len(block_pattern)`` whose parameters are
+stacked along a leading ``layers`` axis, exactly as in the JAX package;
+where that package scans the stack with ``jax.lax.scan``, the port runs a
+Python loop over the leading axis of the same stacked tensors. Remainder
+layers (``num_layers % pattern``) run unstacked.
 """
 from __future__ import annotations
 
@@ -17,16 +16,13 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.dist.sharding import shard
+from repro_torch.models.griffin import rglru_block, rglru_cache_specs, rglru_defs
 from repro_torch.models.layers import (attention, attn_cache_shape, attn_defs,
-                                       block_cfg_for, ffn, ffn_defs, rmsnorm)
+                                       block_cfg_for, ffn, ffn_defs, promote,
+                                       rmsnorm)
 from repro_torch.models.params import ParamDef, stack_defs
+from repro_torch.models.ssm import ssd_block, ssd_cache_specs, ssd_defs
 from repro_torch.models.tree import tree_map
-
-
-def _attention_only(bc, kind):
-    if bc.kind != "attn":
-        raise NotImplementedError(
-            f"block kind {kind!r} ({bc.kind}) is not ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -34,10 +30,15 @@ def _attention_only(bc, kind):
 # ---------------------------------------------------------------------------
 def block_defs(cfg, kind: str) -> dict:
     bc = block_cfg_for(cfg, kind)
-    _attention_only(bc, kind)
     D = cfg.d_model
-    d = {"norm1": ParamDef((D,), ("embed",), "zeros"),
-         "mixer": attn_defs(cfg)}
+    if bc.kind == "ssd":
+        d = {"mixer": ssd_defs(cfg)}          # ssd blocks self-norm
+    elif bc.kind == "rglru":
+        d = {"norm1": ParamDef((D,), ("embed",), "zeros"),
+             "mixer": rglru_defs(cfg)}
+    else:
+        d = {"norm1": ParamDef((D,), ("embed",), "zeros"),
+             "mixer": attn_defs(cfg)}
     if cfg.d_ff:
         d["norm2"] = ParamDef((D,), ("embed",), "zeros")
         d["ffn"] = ffn_defs(cfg)
@@ -77,9 +78,14 @@ def transformer_defs(cfg) -> dict:
 def apply_block(cfg, kind, p, x, positions, mode, cache=None, cur_index=None):
     """Returns (x, new_cache, aux_loss)."""
     bc = block_cfg_for(cfg, kind)
-    _attention_only(bc, kind)
-    h, c = attention(cfg, bc, p["mixer"], rmsnorm(x, p["norm1"]),
-                     positions, mode, cache, cur_index)
+    if bc.kind == "attn":
+        h, c = attention(cfg, bc, p["mixer"], rmsnorm(x, p["norm1"]),
+                         positions, mode, cache, cur_index)
+    elif bc.kind == "rglru":
+        h, c = rglru_block(cfg, p["mixer"], rmsnorm(x, p["norm1"]), mode,
+                           cache, cfg.use_pallas)
+    else:
+        h, c = ssd_block(cfg, p["mixer"], x, mode, cache, cfg.use_pallas)
     x = x + h
     aux = 0.0
     if "ffn" in p:
@@ -95,8 +101,9 @@ def run_blocks(cfg, params, x, positions, mode, caches=None, cur_index=None):
     """Returns (x, new_caches, aux_total).
 
     Prefill stacks the per-layer caches along the leading ``layers`` axis.
-    Decode writes each layer's new KV into its slice of the stacked cache
-    in place, so the returned caches are the ones passed in.
+    Decode writes each layer's new KV (or conv window and recurrent state)
+    into its slice of the stacked cache in place, so the returned caches
+    are the ones passed in.
     """
     pattern = cfg.block_pattern
     n_cyc = cfg.num_layers // len(pattern)
@@ -151,11 +158,11 @@ def embed_inputs(cfg, params, batch):
 def unembed(cfg, params, x):
     """x: (B,T,D) -> logits (B,T,V) in compute dtype (+softcap)."""
     if "head" in params:
-        logits = torch.einsum("btd,dv->btv", x, params["head"])
+        logits = torch.einsum("btd,dv->btv", *promote(x, params["head"]))
     else:
         # a matmul against the transposed view: einsum would first copy the
         # whole (V, D) embedding into a contiguous (D, V) operand, per call
-        logits = torch.matmul(x, params["embed"].t())
+        logits = torch.matmul(*promote(x, params["embed"].t()))
     if cfg.logits_softcap:
         c = cfg.logits_softcap
         logits = c * torch.tanh(logits.float() / c)
@@ -164,8 +171,13 @@ def unembed(cfg, params, x):
 
 def cast_params(cfg, params):
     """Matmul weights (ndim>=2) -> compute dtype; vectors stay float32
-    (norm scales are precision-sensitive). A tensor already in its target
-    dtype is returned as is, so casting cast params costs no copy."""
+    (norm scales, A_log/lam/dt_bias gates are precision-sensitive). A tensor
+    already in its target dtype is returned as is, so casting cast params
+    costs no copy.
+
+    As in the JAX package, the test is ``ndim``: a cycled layer's vectors
+    are stacked to ``(L, D)`` and so are cast to the compute dtype too; only
+    the unstacked remainder layers keep theirs in float32."""
     cdt = getattr(torch, cfg.compute_dtype)
 
     def cast(x):
@@ -189,11 +201,19 @@ def _is_spec(x):
 
 def _block_cache_defs(cfg, kind, batch, seq_len):
     bc = block_cfg_for(cfg, kind)
-    _attention_only(bc, kind)
     cdt = cfg.compute_dtype
-    sh = attn_cache_shape(cfg, bc, batch, seq_len)
-    ax = ("batch", "cache_seq", "act_kv", None)
-    return (SpecDef(sh, ax, cdt), SpecDef(sh, ax, cdt))
+    if bc.kind == "attn":
+        sh = attn_cache_shape(cfg, bc, batch, seq_len)
+        ax = ("batch", "cache_seq", "act_kv", None)
+        return (SpecDef(sh, ax, cdt), SpecDef(sh, ax, cdt))
+    if bc.kind == "rglru":
+        s = rglru_cache_specs(cfg, batch)
+        return {"conv": SpecDef(s["conv"], ("batch", None, "act_inner"), cdt),
+                "h": SpecDef(s["h"], ("batch", "act_inner"), "float32")}
+    s = ssd_cache_specs(cfg, batch)
+    return {"conv": SpecDef(s["conv"], ("batch", None, "act_inner"), cdt),
+            "state": SpecDef(s["state"], ("batch", "act_inner", None, None),
+                             "float32")}
 
 
 def _stack_spec(d: SpecDef, n: int) -> SpecDef:

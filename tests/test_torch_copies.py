@@ -144,10 +144,24 @@ def test_arch_config_fields_equal(make):
     assert (t.q_dim, t.kv_dim) == (j.q_dim, j.kv_dim)
 
 
+@pytest.mark.parametrize("make", ["get_config", "smoke_config"])
+@pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-9b"])
+def test_recurrent_arch_config_fields_equal(arch, make):
+    """The recurrent configs are verbatim copies, source string included."""
+    j = getattr(jreg, make)(arch)
+    t = getattr(treg, make)(arch)
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert t.layer_kinds() == j.layer_kinds()
+    assert (t.d_inner, t.ssm_heads) == (j.d_inner, j.ssm_heads)
+
+
 def test_registry_lists_only_ported_configs():
-    assert treg.ARCH_IDS == ("qwen3-1.7b",)
+    assert treg.ARCH_IDS == ("qwen3-1.7b", "mamba2-370m", "recurrentgemma-9b")
+    for arch in treg.ARCH_IDS:
+        assert treg._MODULES[arch] == jreg._MODULES[arch].replace(
+            "repro.", "repro_torch.", 1)
     with pytest.raises(KeyError):
-        treg.get_config("mamba2-370m")
+        treg.get_config("llava-next-34b")
 
 
 # ---------------------------------------------------------------------------

@@ -22,14 +22,25 @@ from repro_torch.serving import Request, ServingEngine, pad_cache
 LOGIT_TOL = 1e-4  # f32 logits, port vs JAX (matmul summation order)
 
 
-@pytest.fixture(scope="module")
-def setup():
-    jcfg = jax_smoke_config("qwen3-1.7b")
-    cfg = smoke_config("qwen3-1.7b")
+def _setup(arch):
+    jcfg = jax_smoke_config(arch)
+    cfg = smoke_config(arch)
     jparams = JM.init_params(jcfg, jax.random.PRNGKey(0))
     params = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), cfg,
                              device="cpu")
     return cfg, params, jcfg, jparams
+
+
+@pytest.fixture(scope="module")
+def setup():
+    return _setup("qwen3-1.7b")
+
+
+@pytest.fixture(scope="module", params=["mamba2-370m", "recurrentgemma-9b"])
+def recurrent_setup(request):
+    """The recurrent families: their caches (conv windows, states, local
+    ring buffers) ship through the store and the slot batch."""
+    return _setup(request.param)
 
 
 def _greedy(logits) -> int:
@@ -151,7 +162,14 @@ def _jax_greedy_chain(jcfg, jparams, prompt, n):
 def test_engine_tokens_equal_jax_engine(setup):
     """Same params, same prompts: the port's continuous-batching engine
     emits the JAX engine's greedy tokens."""
-    cfg, params, jcfg, jparams = setup
+    _engine_tokens_equal_jax_engine(*setup)
+
+
+def test_engine_tokens_equal_jax_engine_recurrent(recurrent_setup):
+    _engine_tokens_equal_jax_engine(*recurrent_setup)
+
+
+def _engine_tokens_equal_jax_engine(cfg, params, jcfg, jparams):
     rng = np.random.default_rng(4)
     prompts = [rng.integers(1, 200, size=6).astype(np.int32) for _ in range(3)]
     jeng = JServingEngine(jcfg, jparams, max_batch=1, max_len=32)
@@ -174,7 +192,14 @@ def test_engine_tokens_equal_jax_engine(setup):
 
 
 def test_disaggregated_tokens_equal_jax(setup):
-    cfg, params, jcfg, jparams = setup
+    _disaggregated_tokens_equal_jax(*setup)
+
+
+def test_disaggregated_tokens_equal_jax_recurrent(recurrent_setup):
+    _disaggregated_tokens_equal_jax(*recurrent_setup)
+
+
+def _disaggregated_tokens_equal_jax(cfg, params, jcfg, jparams):
     prompt = np.random.default_rng(2).integers(1, 200, size=8).astype(np.int32)
     want, gap = _jax_greedy_chain(jcfg, jparams, prompt, 4)
     assert gap > 10 * LOGIT_TOL, gap
