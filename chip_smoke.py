@@ -13,30 +13,39 @@ no result):
               local layers within and past the window), ssd_scan (the JAX
               package's kernel-test cases in f32 and bf16, the serving
               dtypes, Q == L), rglru_scan (the kernel-test cases, T = 300,
-              ragged W); timings (CUDA events over 20 back-to-back calls,
-              median of 20) beside the plain version, the library call or a
+              ragged W), rmsnorm (the kernel-test shapes, every served
+              width, mixed x/w dtypes, misaligned rows); timings (CUDA
+              events over 20 back-to-back calls, median of 20) beside the
+              plain version, the library call (F.rms_norm for rmsnorm) or a
               yardstick (torch.cumsum for rglru_scan), and the bound
-  Phases 4-7 run for qwen3-1.7b, mamba2-370m and recurrentgemma-9b in turn,
-  each at full width (random bf16 weights from seed 0), each model's
-  weights freed before the next loads:
+  Phases 4-7 run for qwen3-1.7b, mamba2-370m, recurrentgemma-9b and
+  granite-moe-3b-a800m in turn, each at full width (random bf16 weights
+  from seed 0), each model's weights freed before the next loads:
   4. serving  3 requests through the federated prefill -> decode workflow
               (Deployment over two platforms, caches shipped through the
               object store); the decode step is pre-warmed by the poke
   5. batching the same model under ServingEngine's continuous batching;
               every kernel counter is set to 0 before phase 4 and read
               after phase 5: each kernel launches once per layer of its
-              block kind per prefill, exactly
-  6. checks   kernel-path against plain-path prefill logits, in bf16
-              (bound: 2e-2 of the largest logit, or twice the plain path's
-              own move under an f32-rounding-sized perturbation of its
-              scans, whichever is larger) and in float32 (1e-4); for
+              block kind per prefill, and rmsnorm once per norm per forward
+              pass (prefill or decode step), exactly
+  6. checks   for granite, the MoE routing: (token, choice) routings that
+              differ between kernel and plain path, and the choices one
+              4-slot decode step drops; kernel-path against plain-path
+              prefill logits, in bf16 (bound: 2e-2 of the largest logit,
+              or twice the plain path's own move under an f32-rounding-
+              sized perturbation of its scans' and norms' outputs,
+              whichever is larger) and in float32 (1e-4), granite's plain
+              path on the kernel path's experts; for
               recurrentgemma-9b a 2500-token prompt past its 2048-token
               window, then 8 decode steps through the ring buffers, kernel
               against plain path at every step; the prefetcher's
               side-stream copy to the card, bit-exact
   7. profile  torch.profiler over one warm prefill and 8 decode steps:
               device busy share, the kernels that take the device time and
-              the ops that launched them
+              the ops that launched them; then the same warm prefill and 4
+              decode steps on the host clock with the norms through the
+              rmsnorm kernel and through the plain version, in turns
   8. cold_scan the simulator's kernel against its plain version on the card,
               exactly, in float32 and float64: the cases of the JAX
               package's kernel tests, keep_warm per row, gaps within an f32
@@ -56,9 +65,9 @@ no result):
               PlacementScorer(backend="torch"); the adaptive post-drift
               median beats the static one by >= 25%
 Then one JSON line describing every kernel (launches counted over the main
-paths: serving and batching of the three models for flash_attention,
-ssd_scan and rglru_scan, the simulator and the recomposition phases for
-cold_scan), the card's name and power limit, and the last line
+paths: serving and batching of the four models for flash_attention,
+ssd_scan, rglru_scan and rmsnorm, the simulator and the recomposition
+phases for cold_scan), the card's name and power limit, and the last line
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -70,6 +79,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from dataclasses import replace
 
@@ -100,8 +110,10 @@ from repro_torch.kernels.cold_scan import (  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_plain)
 from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_plain  # noqa: E402
+from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain  # noqa: E402
 from repro_torch.models import griffin as GRIFFIN  # noqa: E402
+from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import ssm as SSM  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models.transformer import _is_spec, cache_defs, cast_params  # noqa: E402
@@ -116,7 +128,7 @@ MAX_LEN = 1024
 NEW_TOKENS = 16
 SERVE_PROMPTS = (512, 300, 512)  # federated requests: cold, then warm
 BATCH_PROMPTS = (256, 512)  # continuous batching: prompt lengths drawn here
-KERNELS = ("flash_attention", "cold_scan", "ssd_scan", "rglru_scan")
+KERNELS = ("flash_attention", "cold_scan", "ssd_scan", "rglru_scan", "rmsnorm")
 SIM_SEEDS = 16  # the full-size sweep: 16 seeds x 256 placements x 4096 requests
 SIM_REQUESTS = 4096
 COLD_SCAN_FULL = (4096, 4096)  # (B, T) of one node of that sweep
@@ -442,6 +454,94 @@ def phase_rglru_scan() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3c: rmsnorm against its plain version
+# ---------------------------------------------------------------------------
+RMSNORM_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # tests/test_kernels.py
+EPS = 1e-6
+
+
+def rmsnorm_bytes(x, w) -> int:
+    """x read once, out written once, w read once."""
+    return 2 * x.numel() * x.element_size() + w.numel() * w.element_size()
+
+
+def rmsnorm_case(g, name, shape, dtype, w_dtype, offset=0, timed=False):
+    """x normal, w = 0.1·normal (the JAX package's kernel-test generator);
+    ``offset`` shifts x one element off 16-byte alignment (the scalar
+    path)."""
+    n = int(np.prod(shape))
+    x = torch.randn(n + offset, generator=g, device=DEV).to(dtype)[offset:]
+    x = x.view(shape)
+    w = (0.1 * torch.randn(shape[-1], generator=g, device=DEV)).to(w_dtype)
+    got = rmsnorm(x, w, EPS)
+    sync()
+    want = rmsnorm_plain(x, w, EPS)
+    tol = RMSNORM_TOL[dtype]
+    err, ok = _close(got, want, tol)
+    ok = ok and got.dtype == dtype and got.shape == x.shape
+    log(f"[rmsnorm] {name}: x {tuple(shape)} {str(dtype)[6:]} w {str(w_dtype)[6:]}"
+        f"{' (x 16-byte misaligned)' if offset else ''}: max_abs_err {err:.3g} "
+        f"atol=rtol={tol:g} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"rmsnorm {name} disagrees with its plain version")
+    res = {"max_abs_err": err, "tolerance": tol}
+    if timed:
+        D = shape[-1]
+        xf, w1 = x.float(), 1.0 + w.float()  # the library call's operands
+        lib_err = (F.rms_norm(xf, (D,), w1, EPS).to(dtype).float()
+                   - want.float()).abs().max().item()
+        res["ms"] = device_ms(lambda: rmsnorm(x, w, EPS))
+        res["plain_ms"] = device_ms(lambda: rmsnorm_plain(x, w, EPS))
+        res["library_ms"] = device_ms(lambda: F.rms_norm(xf, (D,), w1, EPS))
+        nbytes = rmsnorm_bytes(x, w)
+        t_bytes = nbytes / HBM_BPS * 1e3
+        t_ops = 4 * x.numel() / PEAK_FLOPS[torch.float32] * 1e3  # f32 stats, scale
+        res.update(bound_ms=max(t_bytes, t_ops), bytes=nbytes, shape=list(shape),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations")
+        log(f"[rmsnorm]   kernel {res['ms'] * 1e3:.2f} us | plain "
+            f"{res['plain_ms'] * 1e3:.2f} us | F.rms_norm on the f32 input "
+            f"{res['library_ms'] * 1e3:.2f} us (its max_abs_err vs plain, cast to "
+            f"{str(dtype)[6:]}: {lib_err:.3g}) | bound {res['bound_ms'] * 1e3:.3f} us "
+            f"({res['bound_by']}: {nbytes / 1e6:.2f} MB) | "
+            f"{res['bound_ms'] / res['ms'] * 100:.1f}% of the bound")
+    return res
+
+
+def phase_rmsnorm() -> dict:
+    """rmsnorm: the JAX package's kernel-test shapes in f32 and bf16 (w
+    f32); the serving shapes (granite's prefill and 4-slot decode rows, the
+    other models' widths, qwen3's qk-norm rows); mixed x/w dtypes; a row
+    count that fills no whole block; rows off 16-byte alignment; and the
+    main path's shape (granite-moe-3b-a800m, a 512-token prompt), timed.
+    Tolerances as tests/test_kernels.py."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    g = torch.Generator(device=DEV).manual_seed(40)
+    worst = 0.0
+    cases = [("(test_kernels)", s, dt, f32) for s in ((7, 64), (3, 5, 128), (1, 256))
+             for dt in (f32, bf16)]
+    cases += [("(granite decode, 4 slots)", (4, 1, 1536), bf16, bf16),
+              ("(qwen3 qk-norm)", (1, 512, 16, 128), bf16, bf16),
+              ("(qwen3 d_model)", (1, 512, 2048), bf16, bf16),
+              ("(mamba2 d_model, norm_y)", (1, 512, 1024), bf16, bf16),
+              ("(mamba2 norm_y)", (1, 512, 2048), bf16, bf16),
+              ("(recurrentgemma remainder)", (1, 512, 4096), bf16, f32),
+              ("(f32 stream, bf16 w)", (1, 300, 2048), f32, bf16),
+              ("(f32, f32)", (2, 77, 4096), f32, f32),
+              ("(rows fill no block)", (1001, 128), bf16, bf16),
+              ("(D not a vector multiple)", (5, 100), bf16, f32),
+              ("(D not a vector multiple)", (6, 99), f32, f32),
+              ("(widest row)", (3, 16384), bf16, bf16)]
+    for args in cases:
+        worst = max(worst, rmsnorm_case(g, *args)["max_abs_err"])
+    for args in (("(misaligned, warp path)", (9, 1000), bf16, bf16),
+                 ("(misaligned, block path)", (3, 1536), f32, bf16)):
+        worst = max(worst, rmsnorm_case(g, *args, offset=1)["max_abs_err"])
+    main = rmsnorm_case(g, "(a) main path", (512, 1536), bf16, bf16, timed=True)
+    main["max_abs_err"] = max(worst, main["max_abs_err"])
+    return main
+
+
+# ---------------------------------------------------------------------------
 # phase 4: federated prefill -> decode at full width
 # ---------------------------------------------------------------------------
 def make_params(cfg):
@@ -455,7 +555,9 @@ def make_params(cfg):
     nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
     log(f"[serving] {cfg.name}: {cfg.num_layers} layers d_model={cfg.d_model} "
         f"heads={cfg.num_heads}/{cfg.num_kv_heads} head_dim={cfg.head_dim} "
-        f"d_ff={cfg.d_ff} vocab={cfg.vocab_size}: {n / 1e9:.3f} B params, "
+        f"d_ff={cfg.d_ff} vocab={cfg.vocab_size}"
+        f"{f' experts={cfg.num_experts} top_k={cfg.top_k}' if cfg.num_experts else ''}"
+        f": {n / 1e9:.3f} B params, "
         f"{nbytes / 1e9:.2f} GB {cfg.compute_dtype} on {DEV} "
         f"({time.perf_counter() - t0:.1f} s)")
     return params
@@ -588,25 +690,30 @@ def phase_batching(cfg, params):
 # ---------------------------------------------------------------------------
 # phase 6: checks off the counted path
 # ---------------------------------------------------------------------------
-NOISE = 1e-7  # relative perturbation of a scan's output: about one f32 ulp
+NOISE = 1e-7  # relative perturbation of a plain version's output: about one f32 ulp
 NOISE_SEEDS = (5, 6, 7, 8)  # the floor is the largest move over these draws
 
 
-def _perturbed_scans(seed):
-    """The plain scans (``ssd_chunked``, ``lru_scan``) with their outputs
-    multiplied by 1 + NOISE * normal: a change of the size of an f32
+def _perturbed_plain(seed):
+    """The plain versions of every kernel that sits on a model's path
+    except flash attention (the scans ``ssd_chunked`` and ``lru_scan``, and
+    ``rmsnorm_plain``, which every norm of the plain path calls) with their
+    outputs multiplied by 1 + NOISE * normal: a change of the size of an f32
     rounding. Returns a function that restores them."""
     g = torch.Generator(device=DEV).manual_seed(seed)
     saved = {(mod, name): getattr(mod, name)
-             for mod, name in ((SSM, "ssd_chunked"), (GRIFFIN, "lru_scan"))}
+             for mod, name in ((SSM, "ssd_chunked"), (GRIFFIN, "lru_scan"),
+                               (L, "rmsnorm_plain"))}
 
     def wrap(fn):
         def noisy(x, *args, **kw):
-            # the scan computes in f32 whatever x's dtype; ask for its f32
+            # each computes in f32 whatever x's dtype; ask for its f32
             # output, so the noise lands before the rounding to x's dtype
-            y, h = fn(x.float(), *args, **kw)
+            out = fn(x.float(), *args, **kw)
+            y = out[0] if isinstance(out, tuple) else out
             noise = torch.randn(y.shape, generator=g, device=y.device)
-            return (y * (1 + NOISE * noise)).to(x.dtype), h
+            y = (y * (1 + NOISE * noise)).to(x.dtype)
+            return (y, *out[1:]) if isinstance(out, tuple) else y
         return noisy
     for (mod, name), fn in saved.items():
         setattr(mod, name, wrap(fn))
@@ -617,25 +724,91 @@ def _perturbed_scans(seed):
     return restore
 
 
+class recording_routes:
+    """Records each MoE call's routing while active: (gate_i (n, K),
+    dropped (n, K), capacity C), from the port's own ``moe_route`` on the
+    layer's input."""
+
+    def __enter__(self):
+        self.calls = []
+        self._moe = L.moe
+
+        def recording(cfg, p, x):
+            _, _, gate_i, pos, C = L.moe_route(cfg, p, x.reshape(1, -1, x.shape[-1]))
+            self.calls.append((gate_i[0], pos[0] >= C, C))
+            return self._moe(cfg, p, x)
+        L.moe = recording
+        return self
+
+    def __exit__(self, *exc):
+        L.moe = self._moe
+        return False
+
+
+class pinned_routes:
+    """Replays recorded routing (a list of gate_i (n, K), one per MoE call,
+    in order): each call takes the experts the recorded call chose, with
+    gate weights from its own router probabilities at those experts, and
+    the slots and capacity those choices give."""
+
+    def __init__(self, calls):
+        self.calls = calls
+
+    def __enter__(self):
+        self._route = L.moe_route
+        recorded = iter(self.calls)
+
+        def replay(cfg, p, xg):
+            probs, _, _, _, C = self._route(cfg, p, xg)
+            gate_i = next(recorded).view(xg.shape[0], xg.shape[1], -1)
+            gate_w = torch.gather(probs, -1, gate_i)
+            gate_w = gate_w / torch.sum(gate_w, dim=-1, keepdim=True)
+            return probs, gate_w, gate_i, L.moe_slots(gate_i, cfg.num_experts), C
+        L.moe_route = replay
+        return self
+
+    def __exit__(self, *exc):
+        L.moe_route = self._route
+        return False
+
+
 def phase_checks(cfg, params, prompt):
     """Kernel-path against plain-path prefill logits, in the serving dtype
-    and in float32 (the same bf16 weights cast up, exactly).
+    and in float32 (the same bf16 weights cast up, exactly). In an MoE
+    model the plain path takes the kernel path's experts (``pinned_routes``;
+    phase_moe reports how many routings differ when it chooses its own): a
+    last-bit difference flips a near-tie of the router, and a flipped choice
+    sends a token through another expert, which no rounding tolerance can
+    measure.
 
     bf16: the same greedy token, and logits within TOL[bf16] of the largest
-    logit or, where the plain path itself moves further when its scans'
-    outputs are perturbed by an f32 rounding (NOISE, the largest move over
-    NOISE_SEEDS), within twice that floor: a bf16 model whose roundings
+    logit or, where the plain path itself moves further when its scans' and
+    norms' outputs are perturbed by an f32 rounding (NOISE, the largest move
+    over NOISE_SEEDS), within twice that floor: a bf16 model whose roundings
     cascade through its layers cannot agree closer with any other
     implementation. float32 has no such cascade and is held to TOL[f32]."""
     tokens = torch.as_tensor(prompt, device=DEV)[None]
-    plain_cfg = cfg.replace(use_pallas=False)
-    k_logits, _ = M.prefill(cfg, params, {"tokens": tokens})
-    p_logits, _ = M.prefill(plain_cfg, params, {"tokens": tokens})
+
+    def kernel_and_plain(c, prm):
+        """(kernel-path prefill, a function that runs the plain path on the
+        kernel path's experts)."""
+        with recording_routes() as rec:
+            logits, _ = M.prefill(c, prm, {"tokens": tokens})
+        routes = [gi for gi, _, _ in rec.calls]
+
+        def plain():
+            with pinned_routes(routes):
+                return M.prefill(c.replace(use_pallas=False), prm,
+                                 {"tokens": tokens})[0]
+        return logits, plain
+
+    k_logits, plain = kernel_and_plain(cfg, params)
+    p_logits = plain()
     moves = []
     for seed in NOISE_SEEDS:
-        restore = _perturbed_scans(seed)
+        restore = _perturbed_plain(seed)
         try:
-            n_logits, _ = M.prefill(plain_cfg, params, {"tokens": tokens})
+            n_logits = plain()
         finally:
             restore()
         moves.append((n_logits - p_logits).abs().max().item())
@@ -645,10 +818,11 @@ def phase_checks(cfg, params, prompt):
     scale = p_logits.abs().max().item()
     bound = max(TOL[torch.bfloat16] * scale, 2 * floor)
     k_tok, p_tok = greedy(k_logits), greedy(p_logits)
-    log(f"[checks] prefill logits kernel vs plain path (prompt {len(prompt)}): "
+    log(f"[checks] prefill logits kernel vs plain path (prompt {len(prompt)}"
+        f"{', plain path on the kernel path experts' if cfg.num_experts else ''}): "
         f"max_abs_diff={diff:.4g} max_abs_logit={scale:.4g} "
         f"argmax {k_tok} vs {p_tok}; plain path under {NOISE:g} relative "
-        f"noise in its scans moves {', '.join(f'{m:.4g}' for m in moves)} "
+        f"noise in its scans and norms moves {', '.join(f'{m:.4g}' for m in moves)} "
         f"(seeds {NOISE_SEEDS}); bound {bound:.4g}")
     if k_tok != p_tok:
         raise AssertionError(f"kernel-path greedy token {k_tok} != plain "
@@ -659,9 +833,8 @@ def phase_checks(cfg, params, prompt):
                              f"2 * {floor})")
 
     f32 = tree_map(lambda t: t.float(), params)
-    f32_cfg = cfg.replace(compute_dtype="float32")
-    k32, _ = M.prefill(f32_cfg, f32, {"tokens": tokens})
-    p32, _ = M.prefill(f32_cfg.replace(use_pallas=False), f32, {"tokens": tokens})
+    k32, plain32 = kernel_and_plain(cfg.replace(compute_dtype="float32"), f32)
+    p32 = plain32()
     sync()
     del f32
     torch.cuda.empty_cache()
@@ -748,6 +921,52 @@ def phase_profile(cfg, params, prompt):
                      "top_ops": [[op, shapes[:100], calls, ds]
                                  for ds, calls, op, shapes in ops[:4]]}
     return out
+
+
+NORM_AB_TURNS = ("kernel", "plain", "plain", "kernel") * 3
+NORM_AB_DECODE = 4
+
+
+def phase_norm_ab(cfg, params, prompt) -> dict:
+    """The rmsnorm kernel end to end: one warm prefill and NORM_AB_DECODE
+    decode steps (host clock, each ended by a synchronise) with every norm
+    through the kernel and, everything else equal, through the plain
+    version, in turns (kernel, plain, plain, kernel) x 3; medians."""
+    tokens = torch.as_tensor(prompt, device=DEV)[None]
+    _, caches = M.prefill(cfg, params, {"tokens": tokens})
+    caches = pad_cache(caches, MAX_LEN, len(prompt), cfg=cfg)
+    tok = torch.ones((1, 1), dtype=torch.int32, device=DEV)
+    sync()
+
+    def run():
+        t0 = time.perf_counter()
+        M.prefill(cfg, params, {"tokens": tokens})
+        sync()
+        t1 = time.perf_counter()
+        for i in range(NORM_AB_DECODE):
+            M.decode_step(cfg, params, tok, caches, len(prompt) + i)
+        sync()
+        return t1 - t0, (time.perf_counter() - t1) / NORM_AB_DECODE
+
+    kernel = L.rmsnorm_kernel
+    walls = {"kernel": [], "plain": []}
+    for turn in NORM_AB_TURNS:
+        L.rmsnorm_kernel = kernel if turn == "kernel" else rmsnorm_plain
+        try:
+            walls[turn].append(run())
+        finally:
+            L.rmsnorm_kernel = kernel
+    res = {name: {"prefill_s": statistics.median(w[0] for w in ws),
+                  "decode_step_s": statistics.median(w[1] for w in ws)}
+           for name, ws in walls.items()}
+    k, p = res["kernel"], res["plain"]
+    log(f"[norm a/b] prompt {len(prompt)}, medians of {len(walls['kernel'])} turns "
+        f"each: prefill {k['prefill_s'] * 1e3:.2f} ms with the rmsnorm kernel vs "
+        f"{p['prefill_s'] * 1e3:.2f} ms with the plain norms "
+        f"({(k['prefill_s'] / p['prefill_s'] - 1) * 100:+.1f}%); decode step "
+        f"{k['decode_step_s'] * 1e3:.2f} vs {p['decode_step_s'] * 1e3:.2f} ms "
+        f"({(k['decode_step_s'] / p['decode_step_s'] - 1) * 100:+.1f}%)")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -1075,20 +1294,52 @@ def phase_adapt() -> dict:
 # the serving paths of the three models
 # ---------------------------------------------------------------------------
 MODEL_KERNELS = {"flash_attention": flash_attention, "ssd_scan": ssd_scan,
-                 "rglru_scan": rglru_scan}
+                 "rglru_scan": rglru_scan, "rmsnorm": rmsnorm}
+SERVED = ("qwen3-1.7b", "mamba2-370m", "recurrentgemma-9b", "granite-moe-3b-a800m")
 WINDOW_PROMPT = 2500  # recurrentgemma-9b: past its 2048-token window
 WINDOW_DECODE = 8
 
 
 def launches_per_prefill(cfg) -> dict:
-    """One launch per layer of the kernel's block kind."""
+    """One launch per layer of the kernel's block kind; rmsnorm once per
+    norm: norm1 (attention and rglru blocks), q_norm and k_norm (qk_norm),
+    the ssd block's norm and norm_y, norm2 (where d_ff), the final norm. A
+    decode step launches rmsnorm as often as a prefill, and nothing else."""
     kinds = cfg.layer_kinds()
-    return {"flash_attention": sum(k in ("global", "local") for k in kinds),
-            "ssd_scan": kinds.count("ssd"), "rglru_scan": kinds.count("rglru")}
+    attn = sum(k in ("global", "local") for k in kinds)
+    norms = (attn * (1 + 2 * bool(cfg.qk_norm)) + kinds.count("rglru")
+             + 2 * kinds.count("ssd") + bool(cfg.d_ff) * len(kinds) + 1)
+    return {"flash_attention": attn, "ssd_scan": kinds.count("ssd"),
+            "rglru_scan": kinds.count("rglru"), "rmsnorm": norms}
 
 
 def launch_counts() -> dict:
     return {n: k.launches for n, k in MODEL_KERNELS.items()}
+
+
+class counting_passes:
+    """Counts the model's forward passes (``M.prefill``, ``M.decode_step``)
+    while active, from any thread: the federated decode step is pre-warmed
+    in a background thread."""
+
+    def __enter__(self):
+        self.n = {"prefill": 0, "decode": 0}
+        self._saved = (M.prefill, M.decode_step)
+        self._lock = threading.Lock()
+
+        def counted(kind, fn):
+            def call(*a, **k):
+                with self._lock:
+                    self.n[kind] += 1
+                return fn(*a, **k)
+            return call
+        M.prefill = counted("prefill", self._saved[0])
+        M.decode_step = counted("decode", self._saved[1])
+        return self
+
+    def __exit__(self, *exc):
+        M.prefill, M.decode_step = self._saved
+        return False
 
 
 def phase_window(cfg, params):
@@ -1136,6 +1387,65 @@ def phase_window(cfg, params):
             "worst_rel_diff": worst}
 
 
+def phase_moe(cfg, params, prompt) -> dict:
+    """MoE routing, off the counted path. (a) Kernel path against plain
+    path prefill: the (token, choice) routings that differ, layer by layer
+    (a last-bit difference in a norm's output can flip a near-tie of the
+    router; these are reported, not hidden), and the choices each path
+    drops at the prompt's capacity. (b) One batched decode step of
+    ServingEngine with 4 slots: 4 tokens at capacity
+    C = max(1, int(4 * top_k / E * capacity_factor)), the dropped (token,
+    choice) pairs per layer (the JAX package's behaviour)."""
+    tokens = torch.as_tensor(prompt, device=DEV)[None]
+    routes, logits = {}, {}
+    for name, c in (("kernel", cfg), ("plain", cfg.replace(use_pallas=False))):
+        with recording_routes() as rec:
+            logits[name], _ = M.prefill(c, params, {"tokens": tokens})
+        routes[name] = rec.calls
+    diff = (logits["kernel"] - logits["plain"]).abs().max().item()
+    argmax = {n: greedy(lg) for n, lg in logits.items()}
+    flips = [int((k[0] != p[0]).sum()) for k, p in zip(routes["kernel"],
+                                                      routes["plain"])]
+    pairs = routes["kernel"][0][0].numel()
+    drops = {n: sum(int(r[1].sum()) for r in rs) for n, rs in routes.items()}
+    C_pre = routes["kernel"][0][2]
+    rng = np.random.default_rng(4)
+    eng = ServingEngine(cfg, params, max_batch=4, max_len=MAX_LEN, device=DEV)
+    for i, n in enumerate(rng.integers(BATCH_PROMPTS[0], BATCH_PROMPTS[1] + 1,
+                                       size=4)):
+        eng.submit(Request(i, rng.integers(1, cfg.vocab_size, size=int(n))
+                           .astype(np.int32), max_new_tokens=NEW_TOKENS))
+    eng._admit()
+    with recording_routes() as rec:
+        eng._decode_once()
+    sync()
+    dec_drops = [int(r[1].sum()) for r in rec.calls]
+    C_dec = rec.calls[0][2]
+    res = {"prefill_tokens": len(prompt), "prefill_capacity": C_pre,
+           "routing_flips_per_layer": flips, "routing_flips": sum(flips),
+           "pairs_per_layer": pairs, "prefill_drops": drops,
+           "decode_capacity": C_dec, "decode_drops_per_layer": dec_drops,
+           "decode_drops": sum(dec_drops),
+           "decode_pairs": rec.calls[0][0].numel() * len(rec.calls),
+           "unpinned_max_abs_diff": diff,
+           "unpinned_max_abs_logit": logits["plain"].abs().max().item(),
+           "unpinned_argmax": argmax}
+    log(f"[moe] prefill {len(prompt)} tokens, capacity {C_pre}: kernel vs plain "
+        f"path, {sum(flips)} of {pairs * len(flips)} (token, choice) routings "
+        f"differ (per layer {flips}); dropped choices kernel "
+        f"{drops['kernel']}, plain {drops['plain']}; each path on its own "
+        f"experts: logits max_abs_diff {diff:.4g} of max_abs_logit "
+        f"{res['unpinned_max_abs_logit']:.4g}, argmax {argmax['kernel']} vs "
+        f"{argmax['plain']} (reported, not gated: phase_checks pins the experts)")
+    log(f"[moe] one batched decode step (4 slots, capacity {C_dec}): "
+        f"{res['decode_drops']} of {res['decode_pairs']} (token, choice) pairs "
+        f"dropped (per layer {dec_drops})")
+    if len(flips) != cfg.num_layers or len(dec_drops) != cfg.num_layers:
+        raise AssertionError(f"expected {cfg.num_layers} MoE layers, recorded "
+                             f"{len(flips)} and {len(dec_drops)}")
+    return res
+
+
 def serve_model(arch) -> dict:
     """The serving path of one model at full width: the federated workflow
     and continuous batching with every kernel counter at 0 just before and
@@ -1149,15 +1459,26 @@ def serve_model(arch) -> dict:
 
     for k in MODEL_KERNELS.values():
         k.launches = 0
-    requests = phase_federated(cfg, params, prompts)
-    fed = launch_counts()
-    batching = phase_batching(cfg, params)
-    total = launch_counts()
+    with counting_passes() as passes:
+        requests = phase_federated(cfg, params, prompts)
+        fed, fed_passes = launch_counts(), dict(passes.n)
+        batching = phase_batching(cfg, params)
+        total = launch_counts()
     n_batched = batching["prefills"] + 1  # + the prewarm prefill
+    n_pass = passes.n["prefill"] + passes.n["decode"]
     log(f"[serving] {arch} launches per prefill {per_prefill}: federated {fed} "
         f"over {len(prompts)} prefills; batching "
-        f"{ {n: total[n] - fed[n] for n in total} } over {n_batched} prefills")
+        f"{ {n: total[n] - fed[n] for n in total} } over {n_batched} prefills; "
+        f"forward passes {passes.n} (federated {fed_passes})")
+    if passes.n["prefill"] != len(prompts) + n_batched:
+        raise AssertionError(f"{arch}: {passes.n['prefill']} prefills counted, "
+                             f"{len(prompts) + n_batched} made")
     for n, want in per_prefill.items():
+        if n == "rmsnorm":  # every forward pass, prefill or decode
+            if total[n] != want * n_pass:
+                raise AssertionError(f"{arch}: {total[n]} rmsnorm launches != "
+                                     f"{want} per pass over {n_pass} passes")
+            continue
         if fed[n] != want * len(prompts):
             raise AssertionError(f"{arch}: {fed[n]} {n} launches != {want} per "
                                  f"prefill over {len(prompts)} prefills")
@@ -1165,14 +1486,18 @@ def serve_model(arch) -> dict:
             raise AssertionError(f"{arch}: batched prefills did not each launch "
                                  f"{n} {want} times")
 
+    moe = phase_moe(cfg, params, prompts[1]) if cfg.num_experts else None
     phase_checks(cfg, params, prompts[1])
     window = (phase_window(cfg, params) if "local" in cfg.block_pattern
               else None)
     profile = phase_profile(cfg, params, prompts[0])
+    norm_ab = phase_norm_ab(cfg, params, prompts[0])
     del params
     torch.cuda.empty_cache()
     return {"arch": arch, "requests": requests, "batching": batching,
-            "profile": profile, "launches": total, "window": window}
+            "profile": profile, "launches": total, "passes": passes.n,
+            "per_prefill": per_prefill, "window": window, "moe": moe,
+            "norm_ab": norm_ab}
 
 
 def main():
@@ -1183,8 +1508,9 @@ def main():
     rg = phase_rglru_scan()
     cs = phase_cold_scan()
 
-    served = [serve_model(arch) for arch in
-              ("qwen3-1.7b", "mamba2-370m", "recurrentgemma-9b")]
+    rn = phase_rmsnorm()
+
+    served = [serve_model(arch) for arch in SERVED]
 
     # the simulator's path: 4 nodes, so one cold_scan launch per node per sweep
     cold_scan.launches = 0
@@ -1245,6 +1571,16 @@ def main():
         "tolerance": rg["tolerance"], "ms": rg["ms"], "plain_ms": rg["plain_ms"],
         "yardstick_ms": rg["yardstick_ms"], "bound_ms": rg["bound_ms"],
         "bound_by": rg["bound_by"], "library_ms": None,
+    }, {
+        "name": "rmsnorm", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+        "replaces": "src/repro/kernels/rmsnorm.py:24",
+        "launches": model_launches("rmsnorm"), "dtype": "bfloat16",
+        "shape": rn["shape"], "max_abs_err": rn["max_abs_err"],
+        "tolerance": rn["tolerance"], "ms": rn["ms"], "plain_ms": rn["plain_ms"],
+        "bound_ms": rn["bound_ms"], "bound_by": rn["bound_by"],
+        "library_ms": rn["library_ms"],
+        "library": "torch.nn.functional.rms_norm on the float32 input",
     }]
     for m in served:
         log(json.dumps({"serving": m}))

@@ -16,6 +16,8 @@ _MODULES = {
     "qwen3-1.7b": "repro_torch.configs.qwen3_1_7b",
     "mamba2-370m": "repro_torch.configs.mamba2_370m",
     "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
+    "granite-moe-3b-a800m": "repro_torch.configs.granite_moe_3b_a800m",
+    "moonshot-v1-16b-a3b": "repro_torch.configs.moonshot_v1_16b_a3b",
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -1,6 +1,6 @@
-"""Transformer building blocks (port of ``repro/models/layers.py``, dense
-attention path): RMSNorm, RoPE, GQA attention (global / sliding-window,
-qk-norm, ring-buffer decode caches) and the gated MLP.
+"""Transformer building blocks (port of ``repro/models/layers.py``): RMSNorm,
+RoPE, GQA attention (global / sliding-window, qk-norm, ring-buffer decode
+caches), the gated MLP and capacity-based top-k MoE.
 
 Blocks run in three modes:
   train   — full sequence, no cache
@@ -11,7 +11,9 @@ The dtype plan is the JAX package's: rmsnorm and rope in f32 and cast back,
 attention scores and softmax in f32 with p cast to v's dtype before PV,
 masks at -1e30. Prefill attention with ``cfg.use_pallas`` goes to the
 hand-written kernel (``repro_torch.kernels.flash_attention``); decode keeps
-``_sdpa``, as the JAX package does. MoE is not ported yet.
+``_sdpa``, as the JAX package does. With ``cfg.use_pallas`` every norm runs
+the hand-written rmsnorm kernel (``repro_torch.kernels.rmsnorm``), where the
+JAX package's ``layers.rmsnorm`` stays jnp: the same function.
 """
 from __future__ import annotations
 
@@ -21,8 +23,10 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.dist.sharding import shard
+from repro_torch.dist.sharding import current_sharding, shard
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.rmsnorm import rmsnorm as rmsnorm_kernel
+from repro_torch.kernels.rmsnorm import rmsnorm_plain
 from repro_torch.models.params import ParamDef
 
 NEG_INF = -1e30
@@ -62,10 +66,12 @@ def promote(*ts):
 # ---------------------------------------------------------------------------
 # norms / rope
 # ---------------------------------------------------------------------------
-def rmsnorm(x, w, eps=1e-6):
-    x32 = x.float()
-    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
-    return ((x32 * torch.rsqrt(var + eps)) * (1.0 + w.float())).to(x.dtype)
+def rmsnorm(x, w, eps=1e-6, use_kernel=False):
+    """f32 statistics, cast back to x's dtype; ``use_kernel`` (the callers
+    pass ``cfg.use_pallas``) routes to the kernel's wrapper."""
+    if use_kernel:
+        return rmsnorm_kernel(x, w, eps)
+    return rmsnorm_plain(x, w, eps)
 
 
 def rope(x, positions, theta):
@@ -143,8 +149,8 @@ def attention(cfg, bc: BlockCfg, p, x, positions, mode, cache=None,
     k = torch.einsum("btd,dhk->bthk", x, p["wk"])
     v = torch.einsum("btd,dhk->bthk", x, p["wv"])
     if cfg.qk_norm:
-        q = rmsnorm(q, p["q_norm"])
-        k = rmsnorm(k, p["k_norm"])
+        q = rmsnorm(q, p["q_norm"], use_kernel=cfg.use_pallas)
+        k = rmsnorm(k, p["k_norm"], use_kernel=cfg.use_pallas)
     q = rope(q, positions, bc.theta)
     k = rope(k, positions, bc.theta)
     q = shard(q, "batch", "attn_seq", "act_heads", None)
@@ -235,14 +241,122 @@ def mlp(cfg, p, x):
     return shard(out, "batch", "seq", "act_embed")
 
 
+# ---------------------------------------------------------------------------
+# MoE: top-k token-choice routing, capacity-limited dispatch to stacked
+# experts, gate-weighted combine. The JAX package groups tokens by the mesh's
+# batch shards (G groups, each with its own capacity); outside a mesh G = 1,
+# and the port runs no mesh.
+# ---------------------------------------------------------------------------
+def moe_defs(cfg) -> dict:
+    D, F_, E = cfg.d_model, cfg.d_ff, cfg.num_experts
+    e_ax = None if cfg.moe_tp_ff else "expert"
+    return {
+        "router": ParamDef((D, E), ("embed", None)),
+        "w_gate": ParamDef((E, D, F_), (e_ax, "embed", "ff")),
+        "w_up": ParamDef((E, D, F_), (e_ax, "embed", "ff")),
+        "w_down": ParamDef((E, F_, D), (e_ax, "ff", "embed")),
+    }
+
+
+def _batch_groups(n_tokens: int) -> int:
+    """Routing groups: 1 outside a mesh; a mesh raises, as ``shard`` does."""
+    mesh, rules = current_sharding()
+    if mesh is None or rules is None:
+        return 1
+    raise NotImplementedError(
+        "MoE under a device mesh: distribution is not ported yet; run "
+        "single-card platforms (Platform.mesh=None)")
+
+
+def moe_route(cfg, p, xg):
+    """Routing of xg (G, n, D), in float32. Returns (probs (G,n,E), gate_w
+    (G,n,K) renormalised over the top k, gate_i (G,n,K) expert indices in
+    descending probability, pos (G,n,K) the slot each choice asks for within
+    its expert, capacity C). Slots are handed out choice by choice (every
+    token's first choice before any second choice), tokens in order."""
+    n = xg.shape[1]
+    E, K = cfg.num_experts, cfg.top_k
+    logits = torch.einsum("gnd,de->gne", xg.float(), p["router"].float())
+    probs = torch.softmax(logits, dim=-1)
+    gate_w, gate_i = torch.topk(probs, K, dim=-1, sorted=True)
+    gate_w = gate_w / torch.sum(gate_w, dim=-1, keepdim=True)
+    # Python arithmetic, exactly the JAX package's expression
+    C = max(1, int(n * K / E * cfg.capacity_factor))
+    return probs, gate_w, gate_i, moe_slots(gate_i, E), C
+
+
+def moe_slots(gate_i, E):
+    """The slot each choice of gate_i (G, n, K) asks for within its expert:
+    the exclusive count of earlier asks for the same expert over the
+    (choice, token)-ordered sequence of asks."""
+    G, n, K = gate_i.shape
+    asks = gate_i.transpose(1, 2).reshape(G, K * n)              # choice-major
+    # (G, E, K*n): the count runs along the contiguous last axis (on the
+    # card a scan along a strided axis runs one thread per expert)
+    oh = F.one_hot(asks, E).transpose(1, 2).contiguous()
+    before = torch.cumsum(oh, dim=2) - oh
+    pos = torch.gather(before, 1, asks[:, None, :])[:, 0]
+    return pos.reshape(G, K, n).transpose(1, 2)                  # (G, n, K)
+
+
+def moe(cfg, p, x):
+    """x: (B,T,D) -> ((B,T,D), aux load-balance loss).
+
+    A choice whose slot is past the capacity C is dropped: it contributes
+    nothing, and its zero update goes to slot C-1 of its expert, which may
+    hold a kept token, so the dispatch scatter ADDS (``index_put_`` with
+    ``accumulate=True``), as the JAX package's ``.at[].add``. The combine is
+    deterministic: each token's kept contributions are gathered and added
+    in increasing expert order, in x's dtype: the order in which XLA's
+    scatter-add of the JAX package sums them (atomics on the card would
+    sum them in an order that changes from run to run)."""
+    B, T, D = x.shape
+    E, K = cfg.num_experts, cfg.top_k
+    N = B * T
+    G = _batch_groups(N)
+    n = N // G
+    xg = x.reshape(G, n, D)
+    probs, gate_w, gate_i, pos, C = moe_route(cfg, p, xg)
+    keep = pos < C
+    slot = pos.clamp(max=C - 1)  # a dropped choice points at slot C-1
+
+    # dispatch into (G, E, C, D)
+    g_idx = torch.arange(G, device=x.device)[:, None, None].expand(G, n, K)
+    upd = xg[:, :, None, :] * keep.to(x.dtype)[..., None]        # (G, n, K, D)
+    buf = x.new_zeros((G, E, C, D))
+    buf.index_put_((g_idx.reshape(-1), gate_i.reshape(-1), slot.reshape(-1)),
+                   upd.reshape(-1, D), accumulate=True)
+
+    # expert FFN on the stacked weights
+    g_ = torch.einsum("gecd,edf->gecf", *promote(buf, p["w_gate"]))
+    u = torch.einsum("gecd,edf->gecf", *promote(buf, p["w_up"]))
+    h = F.silu(g_) * u
+    out_buf = torch.einsum("gecf,efd->gecd", *promote(h, p["w_down"]))
+
+    # combine: the gate, rounded to out_buf's dtype, times the slot's
+    # output, each token's choices taken in increasing expert order
+    gate = (gate_w * keep).to(out_buf.dtype)                     # (G, n, K)
+    order = torch.argsort(gate_i, dim=-1)
+    ex, sl, gate = (torch.gather(t, 2, order) for t in (gate_i, slot, gate))
+    contrib = (out_buf[g_idx, ex, sl] * gate[..., None]).to(x.dtype)  # (G,n,K,D)
+    out = torch.zeros((G, n, D), dtype=x.dtype, device=x.device)
+    for j in range(K):
+        out = out + contrib[:, :, j]
+    out = out.reshape(B, T, D)
+
+    # switch-style load-balance aux loss
+    me = torch.mean(probs, dim=(0, 1))                           # (E,)
+    fe = torch.mean(F.one_hot(gate_i[..., 0], E).float(), dim=(0, 1))
+    aux = torch.sum(me * fe) * E
+    return shard(out, "batch", "seq", "act_embed"), aux
+
+
 def ffn_defs(cfg) -> dict:
-    if cfg.num_experts:
-        raise NotImplementedError("MoE layers are not ported yet")
-    return mlp_defs(cfg)
+    return moe_defs(cfg) if cfg.num_experts else mlp_defs(cfg)
 
 
 def ffn(cfg, p, x):
     """Returns (out, aux_loss)."""
     if cfg.num_experts:
-        raise NotImplementedError("MoE layers are not ported yet")
+        return moe(cfg, p, x)
     return mlp(cfg, p, x), 0.0

@@ -47,7 +47,7 @@ def prefill(cfg, params, batch):
     positions = torch.arange(T, dtype=torch.int32, device=x.device)
     mode = "prefill" if cfg.supports_decode else "train"  # encoders: no cache
     x, caches, _ = tfm.run_blocks(cfg, p, x, positions, mode)
-    x = tfm.rmsnorm(x, p["final_norm"])
+    x = tfm.rmsnorm(x, p["final_norm"], use_kernel=cfg.use_pallas)
     logits = tfm.unembed(cfg, p, x[:, -1:, :])
     return logits[:, 0, :].float(), (caches or {})
 
@@ -66,7 +66,7 @@ def decode_step(cfg, params, token, caches, cur_index):
                            device=x.device)
     x, caches, _ = tfm.run_blocks(cfg, p, x, positions, "decode", caches,
                                   cur_index)
-    x = tfm.rmsnorm(x, p["final_norm"])
+    x = tfm.rmsnorm(x, p["final_norm"], use_kernel=cfg.use_pallas)
     logits = tfm.unembed(cfg, p, x)
     return logits[:, 0, :].float(), caches
 

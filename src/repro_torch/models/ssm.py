@@ -89,7 +89,7 @@ def ssd_block(cfg, p, x, mode, cache=None, use_pallas=False):
     """
     d_inner, N, H, Pp = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     Bb, T, D = x.shape
-    u = rmsnorm(x, p["norm"])
+    u = rmsnorm(x, p["norm"], use_kernel=use_pallas)
     zxbcdt = torch.einsum("btd,de->bte", *promote(u, p["in_proj"]))
     z = zxbcdt[..., :d_inner]
     xBC = zxbcdt[..., d_inner:2 * d_inner + 2 * N]
@@ -140,7 +140,7 @@ def ssd_block(cfg, p, x, mode, cache=None, use_pallas=False):
         new_cache = cache
 
     y = y.reshape(Bb, T, d_inner)
-    y = rmsnorm(y * F.silu(z), p["norm_y"])
+    y = rmsnorm(y * F.silu(z), p["norm_y"], use_kernel=use_pallas)
     out = torch.einsum("bte,ed->btd", *promote(y, p["out_proj"]))
     return shard(out, "batch", "seq", "act_embed"), new_cache
 

@@ -78,18 +78,22 @@ def transformer_defs(cfg) -> dict:
 def apply_block(cfg, kind, p, x, positions, mode, cache=None, cur_index=None):
     """Returns (x, new_cache, aux_loss)."""
     bc = block_cfg_for(cfg, kind)
+
+    def norm(t, w):
+        return rmsnorm(t, w, use_kernel=cfg.use_pallas)
+
     if bc.kind == "attn":
-        h, c = attention(cfg, bc, p["mixer"], rmsnorm(x, p["norm1"]),
-                         positions, mode, cache, cur_index)
+        h, c = attention(cfg, bc, p["mixer"], norm(x, p["norm1"]), positions,
+                         mode, cache, cur_index)
     elif bc.kind == "rglru":
-        h, c = rglru_block(cfg, p["mixer"], rmsnorm(x, p["norm1"]), mode,
-                           cache, cfg.use_pallas)
+        h, c = rglru_block(cfg, p["mixer"], norm(x, p["norm1"]), mode, cache,
+                           cfg.use_pallas)
     else:
         h, c = ssd_block(cfg, p["mixer"], x, mode, cache, cfg.use_pallas)
     x = x + h
     aux = 0.0
     if "ffn" in p:
-        f, aux = ffn(cfg, p["ffn"], rmsnorm(x, p["norm2"]))
+        f, aux = ffn(cfg, p["ffn"], norm(x, p["norm2"]))
         x = x + f
     return x, c, aux
 

@@ -155,8 +155,32 @@ def test_recurrent_arch_config_fields_equal(arch, make):
     assert (t.d_inner, t.ssm_heads) == (j.d_inner, j.ssm_heads)
 
 
+@pytest.mark.parametrize("make", ["get_config", "smoke_config"])
+def test_granite_config_fields_equal_but_source(make):
+    """The reference's granite names the 1b-a400m model as its source; its
+    dimensions are granite-3.0-3b-a800m's, which the port's copy names."""
+    j = getattr(jreg, make)("granite-moe-3b-a800m")
+    t = getattr(treg, make)("granite-moe-3b-a800m")
+    jf, tf = dataclasses.asdict(j), dataclasses.asdict(t)
+    assert jf.pop("source") == "hf:ibm-granite/granite-3.0-1b-a400m-base; hf"
+    assert tf.pop("source") == "hf:ibm-granite/granite-3.0-3b-a800m-base; hf"
+    assert tf == jf
+    assert t.layer_kinds() == j.layer_kinds()
+    assert t.active_param_count() == j.active_param_count()
+
+
+@pytest.mark.parametrize("make", ["get_config", "smoke_config"])
+def test_moonshot_config_fields_equal(make):
+    """A verbatim copy, source string included."""
+    j = getattr(jreg, make)("moonshot-v1-16b-a3b")
+    t = getattr(treg, make)("moonshot-v1-16b-a3b")
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert t.active_param_count() == j.active_param_count()
+
+
 def test_registry_lists_only_ported_configs():
-    assert treg.ARCH_IDS == ("qwen3-1.7b", "mamba2-370m", "recurrentgemma-9b")
+    assert treg.ARCH_IDS == ("qwen3-1.7b", "mamba2-370m", "recurrentgemma-9b",
+                             "granite-moe-3b-a800m", "moonshot-v1-16b-a3b")
     for arch in treg.ARCH_IDS:
         assert treg._MODULES[arch] == jreg._MODULES[arch].replace(
             "repro.", "repro_torch.", 1)
