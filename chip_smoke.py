@@ -6,13 +6,19 @@ Phases (each raises on failure; the script then exits non-zero and prints
 no result):
   1. device   the card's name and power limit (nvidia-smi); TF32 off
   2. build    nvcc builds every CUDA kernel of the port from csrc/ into
-              build/torch_kernels/ (one nvcc per source, all in parallel)
+              build/torch_kernels/ (one nvcc per source, all in parallel);
+              registers and spill stores of every kernel function
   3. kernels  each model kernel against its plain PyTorch version on the
               card, at the serving path's shapes and edge cases:
-              flash_attention (qwen3's prefill shape, recurrentgemma's
-              local layers within and past the window), ssd_scan (the JAX
+              flash_attention (the three served prefill shapes of qwen3,
+              granite and recurrentgemma, timed; recurrentgemma's local
+              layers past the window; the wgmma kernel's edges: T = 1,
+              T < 64, T != S, GQA 3 and 16 with ragged T, B = 2 with a
+              ragged S, a window inside one kv tile, kv pieces that do not
+              divide a q tile's range), ssd_scan (the JAX
               package's kernel-test cases in f32 and bf16, the serving
-              dtypes, Q == L), rglru_scan (the kernel-test cases, T = 300,
+              dtypes, Q == L, 4 chunks, a chunk of 96 that fills no whole
+              C·Bᵀ tile), rglru_scan (the kernel-test cases, T = 300,
               ragged W), rmsnorm (the kernel-test shapes, every served
               width, mixed x/w dtypes, misaligned rows); timings (CUDA
               events over 20 back-to-back calls, median of 20) beside the
@@ -43,7 +49,8 @@ no result):
               side-stream copy to the card, bit-exact
   7. profile  torch.profiler over one warm prefill and 8 decode steps:
               device busy share, the kernels that take the device time and
-              the ops that launched them; then the same warm prefill and 4
+              the ops that launched them, the port's own kernels by name;
+              then the same warm prefill and 4
               decode steps on the host clock with the norms through the
               rmsnorm kernel and through the plain version, in turns
   8. cold_scan the simulator's kernel against its plain version on the card,
@@ -69,6 +76,12 @@ paths: serving and batching of the four models for flash_attention,
 ssd_scan, rglru_scan and rmsnorm, the simulator and the recomposition
 phases for cold_scan), the card's name and power limit, and the last line
 {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --only kernels,ssd_scan
+
+runs phases 1-2 and the named ones of kernels, ssd_scan, rglru_scan,
+rmsnorm and cold_scan only (a short call to bring up a kernel), prints
+their results and no final line.
 """
 from __future__ import annotations
 
@@ -105,10 +118,11 @@ from repro_torch.core import torchsim  # noqa: E402
 from repro_torch.core.shipping import PlacementCosts  # noqa: E402
 from repro_torch.dag import DagSpec, DagStep, document_dag_fig4  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels.cold_scan import (  # noqa: E402
     cold_scan, cold_scan_parallel, cold_scan_plain)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention, flash_attention_plain)
+    flash_attention, flash_attention_plain, launch_plan)
 from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_plain  # noqa: E402
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain  # noqa: E402
@@ -138,6 +152,17 @@ ADAPT_REQUESTS = 1200
 
 def log(msg=""):
     print(msg, flush=True)
+
+
+KEEP_GOING = False  # --only: a failed kernel case is recorded, not raised
+FAILURES = []
+
+
+def fail(msg):
+    if not KEEP_GOING:
+        raise AssertionError(msg)
+    FAILURES.append(msg)
+    log(f"[FAIL] {msg}")
 
 
 def nvidia_smi() -> str:
@@ -186,19 +211,63 @@ def phase_device() -> str:
     return smi
 
 
-def phase_build():
+def kernel_name(mangled: str) -> str:
+    """``name<args>`` of a mangled kernel in an anonymous namespace."""
+    at = 3 if mangled.startswith("_ZN") else 2
+    name = ""
+    while at < len(mangled) and mangled[at].isdigit():
+        m = re.match(r"\d+", mangled[at:])
+        n, at = int(m.group(0)), at + m.end()
+        name, at = mangled[at:at + n], at + n
+        if not name.startswith("_GLOBAL__N"):
+            break
+    if not name:
+        return mangled
+    rest = mangled[at:]
+    if rest.startswith("I"):
+        args = re.findall(r"Li(\d+)E|(13__nv_bfloat16)|(f)(?=E)", rest[:rest.find("EE") + 1])
+        name += "<" + ",".join(a or ("bf16" if b else "float") for a, b, _ in args) + ">"
+    return name
+
+
+def ptxas_kernels(log_text: str) -> dict:
+    """{kernel: (registers, spill store bytes)} from ``ptxas -v`` output."""
+    out, cur = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = kernel_name(m.group(1))
+            out[cur] = [0, 0]
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and cur:
+            out[cur][1] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            out[cur][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def phase_build() -> dict:
     t0 = time.perf_counter()
     paths = build.build_all(list(KERNELS))
     dt = time.perf_counter() - t0
+    res = {}
     for name, path in paths.items():
-        ptxas = build.build_logs.get(name, "")
-        regs = [int(x) for x in re.findall(r"Used (\d+) registers", ptxas)]
-        spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", ptxas)]
+        per = ptxas_kernels(build.build_logs.get(name, ""))
         log(f"[build] {name}: {os.path.relpath(path)} "
-            f"({build.build_seconds[name]:.1f} s; {len(regs)} kernels, "
-            f"registers <= {max(regs, default=0)}, spill stores <= "
-            f"{max(spills, default=0)} bytes)")
+            f"({build.build_seconds[name]:.1f} s; {len(per)} kernels, "
+            f"registers <= {max((r for r, _ in per.values()), default=0)}, spill "
+            f"stores <= {max((sp for _, sp in per.values()), default=0)} bytes)")
+        if name in ("flash_attention", "ssd_scan"):
+            for k, (r, sp) in sorted(per.items()):
+                log(f"[build]   {k}: {r} registers, {sp} bytes spill stores")
+        for line in build.build_logs.get(name, "").splitlines():
+            if "warning" in line.lower() or "Performance Loss" in line:
+                log(f"[build]   {name}: {line.strip()[:300]}")
+        res[name] = {k: {"registers": r, "spill_stores": sp} for k, (r, sp) in per.items()}
     log(f"[build] all kernels built in {dt:.1f} s")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -233,13 +302,20 @@ def flash_case(name, B, T, S, H, K, d, dtype, causal, window, seed, timed=False)
     tol = TOL[dtype]
     ok = bool(torch.isfinite(out).all()) and torch.allclose(
         out.float(), want.float(), atol=tol, rtol=tol)
+    plan = launch_plan(q, k, **kw)
+    route = ("wgmma: kv_split {}, {} pieces a head, {}".format(
+        plan[0], plan[1], "q tiles split + combine" if plan[2] else "no q tile split")
+        if plan else ("f32 CUDA cores" if dtype == torch.float32 else "mma.sync"))
     log(f"[kernels] flash_attention {name}: B={B} T={T} S={S} H={H} K={K} d={d} "
-        f"{str(dtype)[6:]} causal={causal} window={window} max_abs_err={err:.3g} "
-        f"tol={tol:g} {'ok' if ok else 'FAIL'}")
+        f"{str(dtype)[6:]} causal={causal} window={window} [{route}] "
+        f"max_abs_err={err:.3g} tol={tol:g} {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError(f"flash_attention {name} disagrees with its plain "
-                             f"version: max_abs_err {err} > tol {tol}")
-    res = {"max_abs_err": err, "tolerance": tol}
+        fail(f"flash_attention {name} disagrees with its plain version: "
+             f"max_abs_err {err} > tol {tol}")
+    res = {"max_abs_err": err, "tolerance": tol, "shape": [B, T, S, H, K, d],
+           "window": window}
+    if plan:
+        res["kv_split"], res["pieces_per_head"] = plan[0], plan[1]
     if timed:
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         res["ms"] = device_ms(lambda: flash_attention(q, k, v, **kw))
@@ -257,40 +333,138 @@ def flash_case(name, B, T, S, H, K, d, dtype, causal, window, seed, timed=False)
     return res
 
 
+def split_sweep(arch, B, T, S, H, K, d, window, seed) -> dict:
+    """The wgmma kernel at a served prefill shape with its q tiles cut into
+    kv pieces of 1, 2, 3 and 4 tiles and whole (the wrapper's choice there),
+    each checked against the plain version and timed: the evidence for
+    ``choose_kv_split``."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    q = torch.randn(B, T, H, d, generator=g, device=DEV).to(torch.bfloat16)
+    k = torch.randn(B, S, K, d, generator=g, device=DEV).to(torch.bfloat16)
+    v = torch.randn(B, S, K, d, generator=g, device=DEV).to(torch.bfloat16)
+    kw = dict(causal=True, window=window)
+    want = flash_attention_plain(q, k, v, **kw).float()
+    chosen = launch_plan(q, k, **kw)[0]
+    res = {}
+    choose = FA.choose_kv_split
+    for ks in (1, 2, 3, 4, -(-T // 64)):
+        FA.choose_kv_split = lambda *a, ks=ks: ks  # the wrapper's plan, forced
+        FA._plan.cache_clear()
+        try:
+            out = flash_attention(q, k, v, **kw)
+            sync()
+            res[ks] = device_ms(lambda: flash_attention(q, k, v, **kw))
+        finally:
+            FA.choose_kv_split = choose
+            FA._plan.cache_clear()
+        err = (out.float() - want).abs().max().item()
+        tol = TOL[torch.bfloat16]
+        if not (torch.isfinite(out).all() and torch.allclose(out.float(), want,
+                                                             atol=tol, rtol=tol)):
+            fail(f"flash_attention {arch} with kv_split={ks} disagrees with its "
+                 f"plain version: max_abs_err {err}")
+    log(f"[kernels]   split sweep, {arch}: " + " | ".join(
+        f"kv_split {ks}{' (whole q tiles)' if ks == -(-T // 64) else ''}"
+        f"{' [chosen]' if ks == chosen else ''} {ms * 1e3:.1f} us"
+        for ks, ms in res.items()))
+    return res
+
+
+def tile_cost(d, H, K, seed) -> dict:
+    """The wgmma kernel's cost of one kv tile: non-causal, whole q tiles,
+    128 blocks walking 8 and then 16 kv tiles (T = S = 512 with H heads,
+    then 1024 with H/2); the difference over 8 is a tile's time, and the K
+    and V bytes those 8 extra tiles of every block load, over it, the rate
+    the blocks draw K/V from L2 (each of a kv head's H/K query heads and
+    each q tile loads its tiles again)."""
+    ms = []
+    for T, h in ((512, H), (1024, H // 2)):
+        g = torch.Generator(device=DEV).manual_seed(seed)
+        q = torch.randn(1, T, h, d, generator=g, device=DEV).to(torch.bfloat16)
+        k = torch.randn(1, T, min(K, h), d, generator=g, device=DEV).to(torch.bfloat16)
+        v = torch.randn(1, T, min(K, h), d, generator=g, device=DEV).to(torch.bfloat16)
+        out = flash_attention(q, k, v, causal=False)
+        sync()
+        want = flash_attention_plain(q, k, v, causal=False).float()
+        if not torch.allclose(out.float(), want, atol=TOL[torch.bfloat16],
+                              rtol=TOL[torch.bfloat16]):
+            fail(f"flash_attention non-causal T={T} d={d} disagrees with its plain version")
+        ms.append(device_ms(lambda: flash_attention(q, k, v, causal=False)))
+    tile_us = (ms[1] - ms[0]) / 8 * 1e3
+    kv_bytes = 128 * 8 * 2 * 64 * d * 2  # 8 more K and V tiles for 128 blocks
+    res = {"ms_8_tiles": ms[0], "ms_16_tiles": ms[1], "tile_us": tile_us,
+           "kv_tb_per_s": kv_bytes / (tile_us * 8e-6) / 1e12}
+    log(f"[kernels]   tile cost, d={d}: 128 blocks x 8 kv tiles {ms[0] * 1e3:.2f} us, "
+        f"x 16 {ms[1] * 1e3:.2f} us: {tile_us:.3f} us a tile, K/V drawn at "
+        f"{res['kv_tb_per_s']:.2f} TB/s")
+    return res
+
+
+FLASH_SERVING = {  # (B, T, S, H, K, d, window) of a 512-token prefill
+    "qwen3-1.7b": (1, 512, 512, 16, 8, 128, None),
+    "granite-moe-3b-a800m": (1, 512, 512, 24, 8, 64, None),
+    "recurrentgemma-9b": (1, 512, 512, 16, 1, 256, 2048),
+}
+
+
 def phase_kernels() -> dict:
-    """flash_attention: (a) is the serving path's prefill shape (qwen3-1.7b,
-    512-token prompt), timed; (b) its 300-token prompt; (c), (d) GQA with a
+    """flash_attention: (a), (l), (n) are the served models' prefill shapes
+    (512-token prompt) of qwen3-1.7b, recurrentgemma-9b's local layers
+    (MQA, d=256, window 2048, which does not bind at 512, so the library
+    call with is_causal is the same function) and granite-moe-3b-a800m (GQA
+    24/8, d=64), timed; (b) qwen3's 300-token prompt; (c), (d) GQA with a
     window and MQA with T != S, in float32; (e)-(k) the other head_dims of
     both dtypes, ragged lengths and windows with and without causality;
-    (l), (m) recurrentgemma-9b's local layers (MQA, d=256, window 2048)
-    within the window and past it."""
-    main = flash_case("(a) main path", 1, 512, 512, 16, 8, 128, torch.bfloat16,
-                      True, None, seed=1, timed=True)
-    cases = (("(b) ragged", 1, 300, 300, 16, 8, 128, torch.bfloat16, True, None),
-             ("(c) GQA 4:1 window 96", 2, 256, 256, 8, 2, 64, torch.float32,
-              True, 96),
-             ("(d) MQA T!=S", 1, 128, 256, 4, 1, 128, torch.float32, True, None),
+    at each served shape, a sweep of forced kv piece lengths, checked and
+    timed; the cost of one kv tile at d = 64, 128, 256 (``tile_cost``);
+    (m) recurrentgemma past its window; (o)-(w) the wgmma kernel's edges
+    in
+    bf16: T = 1, T < 64, T != S (causal and not), GQA 3 and 16 with ragged
+    T, B = 2 with S no multiple of the kv tile, a window inside one kv
+    tile, and q tiles cut into kv pieces of which the last is shorter."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    shapes = {}
+    for label, arch, seed in (("(a) main path", "qwen3-1.7b", 1),
+                              ("(l) local layer", "recurrentgemma-9b", 12),
+                              ("(n) granite prefill", "granite-moe-3b-a800m", 14)):
+        B, T, S, H, K, d, window = FLASH_SERVING[arch]
+        shapes[arch] = flash_case(label, B, T, S, H, K, d, bf16, True, window,
+                                  seed=seed, timed=True)
+        shapes[arch]["split_sweep_ms"] = split_sweep(arch, B, T, S, H, K, d,
+                                                     window, seed)
+    cases = (("(b) ragged", 1, 300, 300, 16, 8, 128, bf16, True, None, 2),
+             ("(c) GQA 4:1 window 96", 2, 256, 256, 8, 2, 64, f32, True, 96, 3),
+             ("(d) MQA T!=S", 1, 128, 256, 4, 1, 128, f32, True, None, 4),
              # every head_dim of both dtypes, ragged and windowed
-             ("(e) GQA 4:1 window 96", 2, 256, 256, 8, 2, 64, torch.bfloat16,
-              True, 96),
-             ("(f) MQA ragged window", 1, 100, 77, 4, 1, 256, torch.bfloat16,
-              True, 40),
-             ("(g) MHA non-causal", 1, 128, 128, 4, 4, 16, torch.bfloat16,
-              False, None),
-             ("(h) non-causal window", 2, 70, 70, 2, 1, 32, torch.bfloat16,
-              False, 8),
-             ("(i) ragged", 1, 100, 77, 4, 2, 256, torch.float32, True, 40),
-             ("(j) non-causal window", 1, 64, 64, 2, 1, 16, torch.float32,
-              False, 8),
-             ("(k) ragged", 1, 65, 65, 4, 2, 32, torch.float32, True, None),
-             # recurrentgemma-9b's local layers: MQA, d=256, window 2048,
-             # within the window and past it
-             ("(l) local layer", 1, 512, 512, 16, 1, 256, torch.bfloat16,
-              True, 2048),
-             ("(m) window binds", 1, 2500, 2500, 16, 1, 256, torch.bfloat16,
-              True, 2048))
-    for seed, args in enumerate(cases, start=2):
-        flash_case(*args, seed=seed)
+             ("(e) GQA 4:1 window 96", 2, 256, 256, 8, 2, 64, bf16, True, 96, 5),
+             ("(f) MQA ragged window", 1, 100, 77, 4, 1, 256, bf16, True, 40, 6),
+             ("(g) MHA non-causal", 1, 128, 128, 4, 4, 16, bf16, False, None, 7),
+             ("(h) non-causal window", 2, 70, 70, 2, 1, 32, bf16, False, 8, 8),
+             ("(i) ragged", 1, 100, 77, 4, 2, 256, f32, True, 40, 9),
+             ("(j) non-causal window", 1, 64, 64, 2, 1, 16, f32, False, 8, 10),
+             ("(k) ragged", 1, 65, 65, 4, 2, 32, f32, True, None, 11),
+             # recurrentgemma-9b's local layers past the window
+             ("(m) window binds", 1, 2500, 2500, 16, 1, 256, bf16, True, 2048, 13),
+             # the wgmma kernel's edges
+             ("(o) T = 1", 2, 1, 1, 4, 4, 64, bf16, True, None, 15),
+             ("(o) T = 1, S = 300", 1, 1, 300, 8, 2, 128, bf16, False, None, 16),
+             ("(p) T < 64", 1, 37, 37, 8, 8, 128, bf16, True, None, 17),
+             ("(q) T != S", 1, 128, 256, 16, 8, 128, bf16, True, None, 18),
+             ("(q) T != S non-causal", 1, 128, 256, 16, 8, 128, bf16, False, None, 19),
+             ("(r) GQA 3 ragged T", 1, 300, 300, 24, 8, 64, bf16, True, None, 20),
+             ("(s) GQA 16 ragged T", 1, 300, 300, 16, 1, 256, bf16, True, 2048, 21),
+             ("(t) B = 2 ragged S", 2, 200, 200, 8, 4, 128, bf16, True, None, 22),
+             ("(u) window inside a kv tile", 1, 256, 256, 8, 2, 128, bf16, True, 20, 23),
+             ("(v) uneven pieces", 1, 1000, 1000, 2, 1, 128, bf16, True, None, 24),
+             ("(w) uneven pieces, d=64", 1, 700, 700, 6, 2, 64, bf16, True, None, 25))
+    worst = 0.0
+    for *args, seed in cases:
+        worst = max(worst, flash_case(*args, seed=seed)["max_abs_err"])
+    main = dict(shapes["qwen3-1.7b"])
+    main["max_abs_err"] = max([worst] + [r["max_abs_err"] for r in shapes.values()])
+    main["shapes"] = shapes
+    main["tile_cost"] = {d: tile_cost(d, H, K, seed=50 + d)
+                         for d, H, K in ((64, 16, 8), (128, 16, 8), (256, 16, 1))}
     return main
 
 
@@ -352,7 +526,7 @@ def ssd_case(name, B, L, H, P, N, Q, dtype, dt_dtype, alog_dtype, tol, seed,
         f"max_abs_err y {ey:.3g} state {es:.3g} atol=rtol={tol:g} "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError(f"ssd_scan {name} disagrees with its plain version")
+        fail(f"ssd_scan {name} disagrees with its plain version")
     res = {"max_abs_err": max(ey, es), "tolerance": tol}
     if timed:
         res["ms"] = device_ms(lambda: ssd_scan(*args, Q))
@@ -375,8 +549,10 @@ def phase_ssd_scan() -> dict:
     """ssd_scan: the cases of the JAX package's kernel tests in f32 and bf16
     (dt in x's dtype, A_log f32), Q == L, the serving dtypes (x, dt, A_log,
     B, C all bf16: every mamba2 layer is a cycled layer, so cast_params
-    casts its stacked A_log too), and the main path's shape (mamba2-370m,
-    a 512-token prompt), timed. Tolerance atol = rtol: 2e-2 in bf16 (y is
+    casts its stacked A_log too), 4 chunks at mamba2's widths (the state
+    carried over three chunk boundaries), a chunk of 96 (its second C·Bᵀ
+    tile is part padding), and the main path's shape (mamba2-370m, a
+    512-token prompt), timed. Tolerance atol = rtol: 2e-2 in bf16 (y is
     rounded to bf16 on both sides), 1e-4 in f32. Both versions sum the
     prefix sums of a·dt in f64, so they decay by the same exponents."""
     f32, bf16 = torch.float32, torch.bfloat16
@@ -393,7 +569,12 @@ def phase_ssd_scan() -> dict:
                        ("(serving dtypes)", (2, 128, 3, 32, 16, 32, bf16, bf16, bf16,
                                              TOL[bf16])),
                        ("(main shape, f32)", (1, 512, 32, 64, 128, 256, f32, f32,
-                                              f32, TOL[f32]))):
+                                              f32, TOL[f32])),
+                       ("(4 chunks)", (1, 1024, 8, 64, 128, 256, bf16, bf16, bf16,
+                                       TOL[bf16])),
+                       ("(Q = 96)", (2, 384, 4, 32, 16, 96, f32, f32, f32, TOL[f32])),
+                       ("(Q = 96)", (2, 384, 4, 32, 16, 96, bf16, bf16, f32,
+                                     TOL[bf16]))):
         r = ssd_case(name, *args, seed=seed)
         worst, seed = max(worst, r["max_abs_err"]), seed + 1
     main = ssd_case("(a) main path", 1, 512, 32, 64, 128, 256, bf16, bf16, bf16,
@@ -886,6 +1067,10 @@ def _profiled(fn):
     return wall, kernels, ops
 
 
+PORT_KERNEL = re.compile(r"flash_fwd|flash_combine|ssd_cb|ssd_scan_kernel|"
+                         r"rglru_scan|rmsnorm|cold_scan")
+
+
 def phase_profile(cfg, params, prompt):
     """Where the time goes in one warm prefill and in 8 decode steps: device
     busy share (kernel time over wall time) and the kernels that take it."""
@@ -916,7 +1101,12 @@ def phase_profile(cfg, params, prompt):
                 f"{kname[:90]}")
         for ds, calls, op, shapes in ops[:4]:
             log(f"[profile]   op {ds * 1e3:8.3f} ms x{calls} {op} {shapes[:100]}")
+        port = {kname: ks for kname, ks in kernels.items() if PORT_KERNEL.search(kname)}
+        for kname, ks in sorted(port.items(), key=lambda kv: -kv[1]):
+            log(f"[profile]   port kernel {ks * 1e3:8.3f} ms "
+                f"({100 * ks / busy if busy else 0:.1f}%) {kname[:90]}")
         out[name] = {"wall_s": wall, "device_busy_s": busy,
+                     "port_kernels": {k[:90]: v for k, v in port.items()},
                      "top": [[k[:90], s] for k, s in top],
                      "top_ops": [[op, shapes[:100], calls, ds]
                                  for ds, calls, op, shapes in ops[:4]]}
@@ -1500,9 +1690,31 @@ def serve_model(arch) -> dict:
             "norm_ab": norm_ab}
 
 
+ONLY_PHASES = {"kernels": lambda: phase_kernels(), "ssd_scan": lambda: phase_ssd_scan(),
+               "rglru_scan": lambda: phase_rglru_scan(),
+               "rmsnorm": lambda: phase_rmsnorm(), "cold_scan": lambda: phase_cold_scan()}
+
+
 def main():
+    if len(sys.argv) == 3 and sys.argv[1] == "--only":
+        names = sys.argv[2].split(",")
+        unknown = [n for n in names if n not in ONLY_PHASES]
+        if unknown:
+            sys.exit(f"chip_smoke: unknown phases {unknown}; choose from "
+                     f"{sorted(ONLY_PHASES)}")
+        global KEEP_GOING
+        KEEP_GOING = True
+        phase_device()
+        phase_build()
+        for n in names:
+            log(json.dumps({n: ONLY_PHASES[n]()}, default=str))
+        if FAILURES:
+            sys.exit(f"chip_smoke: {len(FAILURES)} cases failed")
+        return
+    if len(sys.argv) > 1:
+        sys.exit(f"chip_smoke: usage: {sys.argv[0]} [--only PHASE,...]")
     smi = phase_device()
-    phase_build()
+    ptxas = phase_build()
     fa = phase_kernels()
     ssd = phase_ssd_scan()
     rg = phase_rglru_scan()
@@ -1541,6 +1753,15 @@ def main():
         "tolerance": fa["tolerance"], "ms": fa["ms"], "plain_ms": fa["plain_ms"],
         "bound_ms": fa["bound_ms"], "bound_by": fa["bound_by"],
         "library_ms": fa["library_ms"],
+        "library": "torch.nn.functional.scaled_dot_product_attention",
+        "shapes": {arch: {k: r[k] for k in (
+            "shape", "window", "kv_split", "pieces_per_head", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms", "max_abs_err", "split_sweep_ms")}
+            for arch, r in fa["shapes"].items()},
+        "launches_by_model": {m["arch"]: m["launches"]["flash_attention"]
+                              for m in served if m["launches"]["flash_attention"]},
+        "tile_cost": fa["tile_cost"],
+        "ptxas": ptxas["flash_attention"],
     }, {
         "name": "cold_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/cold_scan.cu",
@@ -1561,7 +1782,8 @@ def main():
         "shape": [1, 512, 32, 64, 128, 256], "max_abs_err": ssd["max_abs_err"],
         "tolerance": ssd["tolerance"], "ms": ssd["ms"], "plain_ms": ssd["plain_ms"],
         "bound_ms": ssd["bound_ms"], "bound_by": ssd["bound_by"],
-        "library_ms": None,
+        "library_ms": None, "device_kernels": ["ssd_cb_bf16", "ssd_scan_kernel<bf16>"],
+        "ptxas": ptxas["ssd_scan"],
     }, {
         "name": "rglru_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",

@@ -15,6 +15,13 @@ positions, with ``cum`` the running sum of ``dt·(-exp(A_log))``:
 ``repro/models/ssm.py::ssd_chunked`` (which ``models/ssm.py`` re-exports),
 all in float32 and cast to x's dtype at the end.
 
+The kernel runs in two passes: C·Bᵀ once per (batch, chunk) into a scratch
+of ``cb_scratch_shape`` floats (only the 64 x 64 tiles of the causal half
+are written), then the scan, which reads those tiles for every head.
+``ssd_cb_plain`` and ``ssd_scan_from_cb`` are the two passes in plain
+PyTorch, tile for tile, so the CPU tests can hold the decomposition to the
+reference.
+
 ``ssd_scan`` takes the plain version only for CPU tensors. For CUDA tensors
 it always launches the kernel, or raises on what the kernel does not take
 (x, B, C of different dtypes or not float32/bfloat16, N or P not a
@@ -22,7 +29,8 @@ multiple of 16 bytes' worth of elements, unaligned rows, L not a multiple
 of the chunk). dt and A_log are cast to float32 before
 the launch; from bfloat16 that is exact, and the plain version computes in
 float32 too. ``block_h`` is accepted for the reference's signature and
-ignored. ``ssd_scan.launches`` counts kernel launches (never plain calls).
+ignored. ``ssd_scan.launches`` counts wrapper calls that launched the
+kernels (both passes; never plain calls).
 """
 from __future__ import annotations
 
@@ -34,6 +42,7 @@ import torch
 from repro_torch.kernels import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+TILE = 64  # rows t and columns s of a C·Bᵀ tile
 
 _lib_lock = threading.Lock()
 _count_lock = threading.Lock()
@@ -93,13 +102,76 @@ def ssd_scan_plain(x, dt, A_log, B_mat, C_mat, chunk):
     return y.to(x.dtype), h
 
 
+def cb_scratch_shape(Bb, L, Q):
+    """(B, chunks, Qp, Qp): the C·Bᵀ scratch, Qp = Q rounded up to TILE."""
+    Qp = -(-Q // TILE) * TILE
+    return (Bb, L // Q, Qp, Qp)
+
+
+def ssd_cb_plain(B_mat, C_mat, Q, fill=0.0):
+    """Pass 1 in plain PyTorch: C_t·B_s in float32 per (batch, chunk), in the
+    scratch layout. The kernel writes only the tiles of the causal half
+    (s tile <= t tile); the others hold ``fill`` here."""
+    Bb, L, N = B_mat.shape
+    shape = cb_scratch_shape(Bb, L, Q)
+    nc, Qp = shape[1], shape[2]
+    cb = torch.zeros(shape, dtype=torch.float32, device=B_mat.device)
+    cb[:, :, :Q, :Q] = torch.einsum(
+        "bcqn,bcsn->bcqs", C_mat.reshape(Bb, nc, Q, N).float(),
+        B_mat.reshape(Bb, nc, Q, N).float())
+    tile = torch.arange(Qp, device=B_mat.device) // TILE
+    return torch.where(tile[:, None] >= tile[None, :], cb,
+                       torch.full_like(cb, fill))
+
+
+def ssd_scan_from_cb(x, dt, A_log, B_mat, C_mat, cb, chunk):
+    """Pass 2 in plain PyTorch, tile for tile as the kernel reads it: per
+    chunk the inter-chunk term (from the second chunk on), then for each t
+    tile the C·Bᵀ tiles s <= t of ``cb`` masked, decayed and scaled by dt,
+    then the state update. Returns (y in x's dtype, final state f32)."""
+    Bb, L, H, Pp = x.shape
+    N = B_mat.shape[-1]
+    Q = min(chunk, L)
+    nc, nt = L // Q, -(-Q // TILE)
+    f32 = torch.float32
+    a = -torch.exp(A_log.to(f32))
+    dtr = dt.to(f32).reshape(Bb, nc, Q, H)
+    cum = torch.cumsum((a * dtr).double(), dim=2).to(f32)   # as ssd_scan_plain
+    xr = x.to(f32).reshape(Bb, nc, Q, H, Pp)
+    Br = B_mat.to(f32).reshape(Bb, nc, Q, N)
+    Cr = C_mat.to(f32).reshape(Bb, nc, Q, N)
+    h = torch.zeros((Bb, H, Pp, N), dtype=f32, device=x.device)
+    y = torch.empty((Bb, nc, Q, H, Pp), dtype=f32, device=x.device)
+    for c in range(nc):
+        yc = torch.zeros((Bb, Q, H, Pp), dtype=f32, device=x.device)
+        if c > 0:
+            yc += (torch.einsum("bqn,bhpn->bqhp", Cr[:, c], h)
+                   * torch.exp(cum[:, c])[..., None])
+        for ti in range(nt):
+            t = torch.arange(ti * TILE, min(ti * TILE + TILE, Q), device=x.device)
+            for si in range(ti + 1):
+                s = torch.arange(si * TILE, min(si * TILE + TILE, Q), device=x.device)
+                tile = cb[:, c, t[0]:t[-1] + 1, s[0]:s[-1] + 1]     # (B, t, s)
+                keep = (t[:, None] >= s[None, :])[None, :, :, None]
+                diff = cum[:, c, t][:, :, None] - cum[:, c, s][:, None]
+                decay = torch.exp(torch.where(keep, diff, torch.full_like(diff, -1e30)))
+                G = torch.where(keep, tile[..., None] * decay * dtr[:, c, s][:, None],
+                                torch.zeros_like(decay))
+                yc[:, t] += torch.einsum("btsh,bshp->bthp", G, xr[:, c, s])
+        w_end = torch.exp(cum[:, c, -1:] - cum[:, c]) * dtr[:, c]   # (B, Q, H)
+        h = (h * torch.exp(cum[:, c, -1])[..., None, None]
+             + torch.einsum("bsh,bsn,bshp->bhpn", w_end, Br[:, c], xr[:, c]))
+        y[:, c] = yc
+    return y.reshape(Bb, L, H, Pp).to(x.dtype), h
+
+
 def _kernel_lib():
     global _lib
     with _lib_lock:
         if _lib is None:
             lib = build.load("ssd_scan")
             fn = lib.ssd_scan_fwd
-            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
             _lib = lib
         return _lib
@@ -162,13 +234,15 @@ def _launch(x, dt, A_log, B_mat, C_mat, Q):
     state = torch.empty((Bb, H, P, N), dtype=torch.float32, device=x.device)
     if x.numel() == 0:
         return y, state.zero_()
+    cb = torch.empty(cb_scratch_shape(Bb, L, Q), dtype=torch.float32,
+                     device=x.device)
     lib = _kernel_lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.ssd_scan_fwd(
             x.data_ptr(), dt32.data_ptr(), alog32.data_ptr(), B_mat.data_ptr(),
-            C_mat.data_ptr(), y.data_ptr(), state.data_ptr(), Bb, L, H, P, N, Q,
-            _DTYPES[x.dtype], stream)
+            C_mat.data_ptr(), cb.data_ptr(), y.data_ptr(), state.data_ptr(), Bb,
+            L, H, P, N, Q, _DTYPES[x.dtype], stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err} "
                            f"(x {tuple(x.shape)}, N={N}, chunk={Q}, {x.dtype})")

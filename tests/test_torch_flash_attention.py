@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from repro.kernels import ops, ref
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 
@@ -88,3 +89,125 @@ def test_wrapper_rejects_non_cpu_non_cuda_device():
     q = torch.zeros((1, 4, 2, 16), device="meta")
     with pytest.raises(ValueError):
         flash_attention(q, q[:, :, :1], q[:, :, :1])
+
+
+# --- the wgmma kernel's plan and its piecewise arithmetic (host side) ---
+
+PLAN_CASES = [
+    # T, S, causal, window, kv_split
+    (512, 512, True, None, 3),      # qwen3's prefill: pieces 3, 3, 2
+    (512, 512, True, 2048, 5),      # recurrentgemma's local layers
+    (300, 300, True, None, 1),      # ragged, every tile its own piece
+    (100, 77, True, 40, 2),         # ragged window, T > S
+    (1, 300, False, None, 1),       # T = 1
+    (37, 37, True, None, 5),        # T < 64
+    (128, 256, True, None, 1),      # T != S
+    (128, 256, False, None, 3),     # T != S, non-causal, uneven pieces
+    (2500, 2500, True, 2048, 7),    # the window binds
+    (256, 256, True, 20, 1),        # window inside one kv tile
+    (130, 77, True, 40, 2),         # rows that reach no key
+]
+
+
+def _mask(T, S, causal, window):
+    t = np.arange(T)[:, None]
+    s = np.arange(S)[None, :]
+    m = np.ones((T, S), dtype=bool)
+    if causal:
+        m &= t >= s
+    if window is not None:
+        m &= (t - s) < window
+    return m
+
+
+@pytest.mark.parametrize("T,S,causal,window,kv_split", PLAN_CASES)
+def test_plan_covers_every_reachable_pair_once(T, S, causal, window, kv_split):
+    """Every (query, key) pair the masks leave reachable lies in exactly one
+    piece; pieces of a q tile are consecutive, in kv order, at most
+    kv_split tiles long; q tiles run from the last down."""
+    items = FA.plan_items(T, S, causal, window, kv_split)
+    mask = _mask(T, S, causal, window)
+    seen = np.zeros((T, S), dtype=int)
+    order = []
+    for qt, kt0, kt1, count in items:
+        assert 0 <= kt1 - kt0 <= kv_split
+        rows = slice(qt * FA.TILE, min(qt * FA.TILE + FA.TILE, T))
+        for kt in range(kt0, kt1):
+            cols = slice(kt * FA.TILE, min(kt * FA.TILE + FA.TILE, S))
+            seen[rows, cols] += mask[rows, cols]
+        order.append((qt, kt0, count))
+    np.testing.assert_array_equal(seen, mask.astype(int))
+    n_qt = -(-T // FA.TILE)
+    qts = [qt for qt, _, _ in order]
+    assert qts == sorted(qts, reverse=True) and set(qts) == set(range(n_qt))
+    for qt in range(n_qt):
+        mine = [(kt0, c) for q, kt0, c in order if q == qt]
+        assert len(mine) == mine[0][1] and [k for k, _ in mine] == sorted(k for k, _ in mine)
+
+
+@pytest.mark.parametrize("T,S,causal,window,kv_split",
+                         [c for c in PLAN_CASES if c[0] <= 512 and c[:4] != (130, 77, True, 40)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_pieces_match_ref(T, S, causal, window, kv_split, dtype):
+    """The plain attention cut into the plan's kv pieces, each an online
+    softmax in base 2, recombined as the kernel does, equals the JAX
+    package's oracle."""
+    arrs = _inputs(1, T, S, 6, 2, 64, seed=T + S)
+    (jq, jk, jv), (tq, tk, tv) = _both(arrs, dtype)
+    got = FA.flash_attention_pieces(tq, tk, tv, causal=causal, window=window,
+                                    kv_split=kv_split)
+    want = ref.flash_attention_ref(jq, jk, jv, causal=causal, window=window)
+    assert got.dtype == tq.dtype
+    np.testing.assert_allclose(_np(got), _np(want), **tol(dtype))
+
+
+def test_pieces_give_zero_on_rows_that_reach_no_key():
+    """T > S + window - 1: the last rows reach no key. Pieces with no key
+    (m = -1e30, l = 0) add nothing, so those rows are 0 (the Pallas kernel
+    and the CUDA kernel agree; the plain versions average V); the other
+    rows equal the oracle."""
+    T, S, window = 130, 77, 40
+    arrs = _inputs(2, T, S, 4, 2, 64, seed=9)
+    (jq, jk, jv), (tq, tk, tv) = _both(arrs, "float32")
+    got = _np(FA.flash_attention_pieces(tq, tk, tv, causal=True, window=window,
+                                        kv_split=1))
+    want = _np(ref.flash_attention_ref(jq, jk, jv, causal=True, window=window))
+    dead = ~_mask(T, S, True, window).any(axis=1)
+    assert dead.sum() == T - (S + window - 1)
+    np.testing.assert_array_equal(got[:, dead], 0.0)
+    np.testing.assert_allclose(got[:, ~dead], want[:, ~dead], **tol("float32"))
+
+
+@pytest.mark.parametrize("B,T,S,H,d,window,want_split", [
+    (1, 512, 512, 16, 128, None, 8),    # qwen3-1.7b: 128 whole q tiles
+    (1, 512, 512, 24, 64, None, 8),     # granite-moe-3b-a800m: 192
+    (1, 512, 512, 16, 256, 2048, 8),    # recurrentgemma-9b: 128
+    (1, 1000, 1000, 2, 128, None, 3),   # 32 q tiles: pieces into idle SMs
+    (1, 128, 256, 16, 128, None, 1),    # T != S: 32 q tiles of 1-2 kv tiles
+])
+def test_choose_kv_split_splits_only_into_idle_sms(B, T, S, H, d, window,
+                                                   want_split):
+    """On 132 SMs: whole q tiles when there are at least as many as SMs (the
+    served prefill shapes); otherwise the shortest pieces that still number
+    no more than the SMs."""
+    kv_split = FA.choose_kv_split(T, S, True, window, B, H, d, 132)
+    assert kv_split == want_split
+    pieces = B * H * len(FA.plan_items(T, S, True, window, kv_split))
+    n_qt = -(-T // FA.TILE)
+    if pieces > B * H * n_qt:
+        assert pieces <= 132
+        assert B * H * len(FA.plan_items(T, S, True, window, kv_split - 1)) > 132 \
+            if kv_split > 1 else True
+
+
+def test_plan_rejects_more_pieces_than_the_grid_takes():
+    T = (FA.GRID_MAX + 1) * FA.TILE
+    with pytest.raises(ValueError, match="grid limit"):
+        FA._plan(T, T, True, 1, 1, 1, 64, 132)
+
+
+def test_check_rejects_a_batch_over_the_grid():
+    q = torch.zeros((FA.GRID_MAX + 1, 1, 1, 64), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="batch"):
+        FA._check(q, q, q, None)
+

@@ -106,3 +106,53 @@ def test_ragged_length_raises():
     x, dt, A_log, Bm, Cm = (torch.from_numpy(a) for a in _inputs(1, 40, 2, 16, 8, 6))
     with pytest.raises(ValueError, match="multiple"):
         S.ssd_scan(x, dt, A_log, Bm, Cm, 16)
+
+
+# --- the kernel's two passes (C·Bᵀ once per chunk, then the scan) ---
+
+@pytest.mark.parametrize(
+    "B,L,H,P,N,Q,oracle",
+    [
+        (1, 64, 2, 16, 8, 16, "ref"),     # the kernel tests' shapes: N = 8
+        (2, 128, 4, 32, 16, 32, "ref"),   #   pads the mma depth of 16
+        (1, 96, 3, 16, 8, 32, "ref"),
+        (1, 64, 2, 16, 8, 64, "ref"),     # Q == L
+        # chunks of 96 and 256: cum reaches -1e3, where the reference's
+        # float32 prefix sums drift by ulps of |cum| (ROADMAP queue 3), so
+        # the one-pass plain version (f64 prefix sums) is the oracle
+        (2, 384, 2, 16, 16, 96, "plain"),   # the second t tile part padding
+        (1, 1024, 2, 16, 16, 256, "plain"),  # 4 chunks of mamba2's length
+    ],
+)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_two_pass_decomposition_matches_ref(B, L, H, P, N, Q, oracle, dtype):
+    """C·Bᵀ computed once per (batch, chunk) into the scratch layout, with
+    the tiles the kernel never writes (s tile > t tile) set to NaN, then the
+    scan tile for tile from it, equals the JAX package's oracle (or the
+    one-pass plain version, see above): every head reads the same C·Bᵀ,
+    and nothing reads past the causal half."""
+    arrs = _inputs(B, L, H, P, N, seed=L + N + Q)
+    j, t = _both(arrs, [dtype, dtype, "float32", dtype, dtype])
+    cb = S.ssd_cb_plain(t[3], t[4], min(Q, L), fill=float("nan"))
+    assert tuple(cb.shape) == S.cb_scratch_shape(B, L, min(Q, L))
+    y, s = S.ssd_scan_from_cb(*t, cb, Q)
+    yr, sr = (ref.ssd_scan_ref(*j, Q) if oracle == "ref"
+              else S.ssd_scan_plain(*t, Q))
+    assert y.dtype == t[0].dtype and s.dtype == torch.float32
+    np.testing.assert_allclose(_np(y), _np(yr), **tol(dtype))
+    np.testing.assert_allclose(_np(s), _np(sr), **tol(dtype))
+
+
+def test_cb_scratch_holds_the_causal_half_of_c_b_t():
+    """The scratch layout: (B, chunks, Qp, Qp), Qp = Q rounded up to 64;
+    tile (t, s) with s <= t holds C_t·B_s of its chunk (zero past Q)."""
+    Bm, Cm = (torch.from_numpy(a) for a in _inputs(2, 192, 1, 8, 16, seed=3)[3:])
+    assert S.cb_scratch_shape(2, 192, 96) == (2, 2, 128, 128)
+    cb = S.ssd_cb_plain(Bm, Cm, 96)
+    want = np.einsum("bcqn,bcsn->bcqs", Cm.numpy().reshape(2, 2, 96, 16),
+                     Bm.numpy().reshape(2, 2, 96, 16))
+    tile = np.arange(128) // S.TILE
+    keep = (tile[:, None] >= tile[None, :])[:96, :96]
+    np.testing.assert_allclose(cb[:, :, :96, :96].numpy()[..., keep],
+                               want[..., keep], rtol=1e-6, atol=1e-5)
+    assert (cb[:, :, 96:] == 0).all() and (cb[:, :, :, 96:] == 0).all()
