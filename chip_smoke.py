@@ -333,27 +333,31 @@ def flash_case(name, B, T, S, H, K, d, dtype, causal, window, seed, timed=False)
     return res
 
 
+SWEEP_T = (256, 300, 320, 384, 448, 512)  # served prompt lengths (batching draws 256-512)
+
+
 def split_sweep(arch, B, T, S, H, K, d, window, seed) -> dict:
-    """The wgmma kernel at a served prefill shape with its q tiles cut into
-    kv pieces of 1, 2, 3 and 4 tiles and whole (the wrapper's choice there),
-    each checked against the plain version and timed: the evidence for
-    ``choose_kv_split``."""
+    """The wgmma kernel at a served shape with its q tiles cut into kv
+    pieces of 1, 2, 3 and 4 tiles and whole, each checked against the plain
+    version and timed: the evidence for ``choose_kv_split``. Keys are the
+    piece lengths (the whole q tiles' is the count of q tiles)."""
     g = torch.Generator(device=DEV).manual_seed(seed)
     q = torch.randn(B, T, H, d, generator=g, device=DEV).to(torch.bfloat16)
     k = torch.randn(B, S, K, d, generator=g, device=DEV).to(torch.bfloat16)
     v = torch.randn(B, S, K, d, generator=g, device=DEV).to(torch.bfloat16)
     kw = dict(causal=True, window=window)
     want = flash_attention_plain(q, k, v, **kw).float()
+    whole = -(-T // 64)
     chosen = launch_plan(q, k, **kw)[0]
-    res = {}
+    res = {"chosen": chosen, "whole": whole, "ms": {}}
     choose = FA.choose_kv_split
-    for ks in (1, 2, 3, 4, -(-T // 64)):
+    for ks in sorted({1, 2, 3, 4, whole} - {c for c in range(whole + 1, 5)}):
         FA.choose_kv_split = lambda *a, ks=ks: ks  # the wrapper's plan, forced
         FA._plan.cache_clear()
         try:
             out = flash_attention(q, k, v, **kw)
             sync()
-            res[ks] = device_ms(lambda: flash_attention(q, k, v, **kw))
+            res["ms"][ks] = device_ms(lambda: flash_attention(q, k, v, **kw))
         finally:
             FA.choose_kv_split = choose
             FA._plan.cache_clear()
@@ -361,13 +365,28 @@ def split_sweep(arch, B, T, S, H, K, d, window, seed) -> dict:
         tol = TOL[torch.bfloat16]
         if not (torch.isfinite(out).all() and torch.allclose(out.float(), want,
                                                              atol=tol, rtol=tol)):
-            fail(f"flash_attention {arch} with kv_split={ks} disagrees with its "
-                 f"plain version: max_abs_err {err}")
-    log(f"[kernels]   split sweep, {arch}: " + " | ".join(
-        f"kv_split {ks}{' (whole q tiles)' if ks == -(-T // 64) else ''}"
-        f"{' [chosen]' if ks == chosen else ''} {ms * 1e3:.1f} us"
-        for ks, ms in res.items()))
+            fail(f"flash_attention {arch} T={T} with kv_split={ks} disagrees "
+                 f"with its plain version: max_abs_err {err}")
+    log(f"[flash_sweep] {arch} T={T}: " + " | ".join(
+        f"kv_split {ks}{' (whole q tiles)' if ks == whole else ''}"
+        f"{' [chosen]' if ks == chosen else ''} {ms * 1e3:.2f} us"
+        for ks, ms in res["ms"].items()))
     return res
+
+
+def phase_flash_sweep() -> dict:
+    """Bring-up diagnostics of the wgmma kernel, not run by default: at each
+    served shape and prompt length of ``SWEEP_T``, the q tiles cut into kv
+    pieces of 1-4 tiles against whole q tiles, beside the piece length that
+    ``choose_kv_split`` picks (``split_sweep``); the cost of one kv tile at
+    d = 64, 128, 256 (``tile_cost``)."""
+    out = {}
+    for arch, (B, _, _, H, K, d, window) in FLASH_SERVING.items():
+        out[arch] = {T: split_sweep(arch, B, T, T, H, K, d, window, seed=60 + T)
+                     for T in SWEEP_T}
+    out["tile_cost"] = {d: tile_cost(d, H, K, seed=50 + d)
+                        for d, H, K in ((64, 16, 8), (128, 16, 8), (256, 16, 1))}
+    return out
 
 
 def tile_cost(d, H, K, seed) -> dict:
@@ -415,10 +434,7 @@ def phase_kernels() -> dict:
     24/8, d=64), timed; (b) qwen3's 300-token prompt; (c), (d) GQA with a
     window and MQA with T != S, in float32; (e)-(k) the other head_dims of
     both dtypes, ragged lengths and windows with and without causality;
-    at each served shape, a sweep of forced kv piece lengths, checked and
-    timed; the cost of one kv tile at d = 64, 128, 256 (``tile_cost``);
-    (m) recurrentgemma past its window; (o)-(w) the wgmma kernel's edges
-    in
+    (m) recurrentgemma past its window; (o)-(w) the wgmma kernel's edges in
     bf16: T = 1, T < 64, T != S (causal and not), GQA 3 and 16 with ragged
     T, B = 2 with S no multiple of the kv tile, a window inside one kv
     tile, and q tiles cut into kv pieces of which the last is shorter."""
@@ -430,8 +446,6 @@ def phase_kernels() -> dict:
         B, T, S, H, K, d, window = FLASH_SERVING[arch]
         shapes[arch] = flash_case(label, B, T, S, H, K, d, bf16, True, window,
                                   seed=seed, timed=True)
-        shapes[arch]["split_sweep_ms"] = split_sweep(arch, B, T, S, H, K, d,
-                                                     window, seed)
     cases = (("(b) ragged", 1, 300, 300, 16, 8, 128, bf16, True, None, 2),
              ("(c) GQA 4:1 window 96", 2, 256, 256, 8, 2, 64, f32, True, 96, 3),
              ("(d) MQA T!=S", 1, 128, 256, 4, 1, 128, f32, True, None, 4),
@@ -463,8 +477,6 @@ def phase_kernels() -> dict:
     main = dict(shapes["qwen3-1.7b"])
     main["max_abs_err"] = max([worst] + [r["max_abs_err"] for r in shapes.values()])
     main["shapes"] = shapes
-    main["tile_cost"] = {d: tile_cost(d, H, K, seed=50 + d)
-                         for d, H, K in ((64, 16, 8), (128, 16, 8), (256, 16, 1))}
     return main
 
 
@@ -1067,7 +1079,7 @@ def _profiled(fn):
     return wall, kernels, ops
 
 
-PORT_KERNEL = re.compile(r"flash_fwd|flash_combine|ssd_cb|ssd_scan_kernel|"
+PORT_KERNEL = re.compile(r"flash_fwd|ssd_cb|ssd_scan_kernel|"
                          r"rglru_scan|rmsnorm|cold_scan")
 
 
@@ -1692,7 +1704,8 @@ def serve_model(arch) -> dict:
 
 ONLY_PHASES = {"kernels": lambda: phase_kernels(), "ssd_scan": lambda: phase_ssd_scan(),
                "rglru_scan": lambda: phase_rglru_scan(),
-               "rmsnorm": lambda: phase_rmsnorm(), "cold_scan": lambda: phase_cold_scan()}
+               "rmsnorm": lambda: phase_rmsnorm(), "cold_scan": lambda: phase_cold_scan(),
+               "flash_sweep": lambda: phase_flash_sweep()}
 
 
 def main():
@@ -1756,11 +1769,10 @@ def main():
         "library": "torch.nn.functional.scaled_dot_product_attention",
         "shapes": {arch: {k: r[k] for k in (
             "shape", "window", "kv_split", "pieces_per_head", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms", "max_abs_err", "split_sweep_ms")}
+            "bound_ms", "bound_by", "library_ms", "max_abs_err")}
             for arch, r in fa["shapes"].items()},
         "launches_by_model": {m["arch"]: m["launches"]["flash_attention"]
                               for m in served if m["launches"]["flash_attention"]},
-        "tile_cost": fa["tile_cost"],
         "ptxas": ptxas["flash_attention"],
     }, {
         "name": "cold_scan", "route": "cuda",
