@@ -14,8 +14,8 @@ no result):
               granite and recurrentgemma, timed; recurrentgemma's local
               layers past the window; the wgmma kernel's edges: T = 1,
               T < 64, T != S, GQA 3 and 16 with ragged T, B = 2 with a
-              ragged S, a window inside one kv tile, kv pieces that do not
-              divide a q tile's range), ssd_scan (the JAX
+              ragged S, a window inside one kv tile, long kv walks with
+              ragged T), ssd_scan (the JAX
               package's kernel-test cases in f32 and bf16, the serving
               dtypes, Q == L, 4 chunks, a chunk of 96 that fills no whole
               C·Bᵀ tile), rglru_scan (the kernel-test cases, T = 300,
@@ -81,7 +81,9 @@ phases for cold_scan), the card's name and power limit, and the last line
 
 runs phases 1-2 and the named ones of kernels, ssd_scan, rglru_scan,
 rmsnorm and cold_scan only (a short call to bring up a kernel), prints
-their results and no final line.
+their results and no final line. ``--only tile_cost`` times one kv tile of
+the wgmma flash kernel at d = 64, 128, 256, a diagnostic no default run
+makes.
 """
 from __future__ import annotations
 
@@ -118,11 +120,10 @@ from repro_torch.core import torchsim  # noqa: E402
 from repro_torch.core.shipping import PlacementCosts  # noqa: E402
 from repro_torch.dag import DagSpec, DagStep, document_dag_fig4  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
-from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels.cold_scan import (  # noqa: E402
     cold_scan, cold_scan_parallel, cold_scan_plain)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention, flash_attention_plain, launch_plan)
+    WGMMA_HEAD_DIMS, flash_attention, flash_attention_plain)
 from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_plain  # noqa: E402
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain  # noqa: E402
@@ -302,10 +303,8 @@ def flash_case(name, B, T, S, H, K, d, dtype, causal, window, seed, timed=False)
     tol = TOL[dtype]
     ok = bool(torch.isfinite(out).all()) and torch.allclose(
         out.float(), want.float(), atol=tol, rtol=tol)
-    plan = launch_plan(q, k, **kw)
-    route = ("wgmma: kv_split {}, {} pieces a head, {}".format(
-        plan[0], plan[1], "q tiles split + combine" if plan[2] else "no q tile split")
-        if plan else ("f32 CUDA cores" if dtype == torch.float32 else "mma.sync"))
+    route = ("f32 CUDA cores" if dtype == torch.float32 else
+             "wgmma" if d in WGMMA_HEAD_DIMS else "mma.sync")
     log(f"[kernels] flash_attention {name}: B={B} T={T} S={S} H={H} K={K} d={d} "
         f"{str(dtype)[6:]} causal={causal} window={window} [{route}] "
         f"max_abs_err={err:.3g} tol={tol:g} {'ok' if ok else 'FAIL'}")
@@ -314,8 +313,6 @@ def flash_case(name, B, T, S, H, K, d, dtype, causal, window, seed, timed=False)
              f"max_abs_err {err} > tol {tol}")
     res = {"max_abs_err": err, "tolerance": tol, "shape": [B, T, S, H, K, d],
            "window": window}
-    if plan:
-        res["kv_split"], res["pieces_per_head"] = plan[0], plan[1]
     if timed:
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         res["ms"] = device_ms(lambda: flash_attention(q, k, v, **kw))
@@ -331,62 +328,6 @@ def flash_case(name, B, T, S, H, K, d, dtype, causal, window, seed, timed=False)
             f"{res['library_ms'] * 1e3:.1f} us | bound {res['bound_ms'] * 1e3:.2f} us "
             f"({res['bound_by']}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
     return res
-
-
-SWEEP_T = (256, 300, 320, 384, 448, 512)  # served prompt lengths (batching draws 256-512)
-
-
-def split_sweep(arch, B, T, S, H, K, d, window, seed) -> dict:
-    """The wgmma kernel at a served shape with its q tiles cut into kv
-    pieces of 1, 2, 3 and 4 tiles and whole, each checked against the plain
-    version and timed: the evidence for ``choose_kv_split``. Keys are the
-    piece lengths (the whole q tiles' is the count of q tiles)."""
-    g = torch.Generator(device=DEV).manual_seed(seed)
-    q = torch.randn(B, T, H, d, generator=g, device=DEV).to(torch.bfloat16)
-    k = torch.randn(B, S, K, d, generator=g, device=DEV).to(torch.bfloat16)
-    v = torch.randn(B, S, K, d, generator=g, device=DEV).to(torch.bfloat16)
-    kw = dict(causal=True, window=window)
-    want = flash_attention_plain(q, k, v, **kw).float()
-    whole = -(-T // 64)
-    chosen = launch_plan(q, k, **kw)[0]
-    res = {"chosen": chosen, "whole": whole, "ms": {}}
-    choose = FA.choose_kv_split
-    for ks in sorted({1, 2, 3, 4, whole} - {c for c in range(whole + 1, 5)}):
-        FA.choose_kv_split = lambda *a, ks=ks: ks  # the wrapper's plan, forced
-        FA._plan.cache_clear()
-        try:
-            out = flash_attention(q, k, v, **kw)
-            sync()
-            res["ms"][ks] = device_ms(lambda: flash_attention(q, k, v, **kw))
-        finally:
-            FA.choose_kv_split = choose
-            FA._plan.cache_clear()
-        err = (out.float() - want).abs().max().item()
-        tol = TOL[torch.bfloat16]
-        if not (torch.isfinite(out).all() and torch.allclose(out.float(), want,
-                                                             atol=tol, rtol=tol)):
-            fail(f"flash_attention {arch} T={T} with kv_split={ks} disagrees "
-                 f"with its plain version: max_abs_err {err}")
-    log(f"[flash_sweep] {arch} T={T}: " + " | ".join(
-        f"kv_split {ks}{' (whole q tiles)' if ks == whole else ''}"
-        f"{' [chosen]' if ks == chosen else ''} {ms * 1e3:.2f} us"
-        for ks, ms in res["ms"].items()))
-    return res
-
-
-def phase_flash_sweep() -> dict:
-    """Bring-up diagnostics of the wgmma kernel, not run by default: at each
-    served shape and prompt length of ``SWEEP_T``, the q tiles cut into kv
-    pieces of 1-4 tiles against whole q tiles, beside the piece length that
-    ``choose_kv_split`` picks (``split_sweep``); the cost of one kv tile at
-    d = 64, 128, 256 (``tile_cost``)."""
-    out = {}
-    for arch, (B, _, _, H, K, d, window) in FLASH_SERVING.items():
-        out[arch] = {T: split_sweep(arch, B, T, T, H, K, d, window, seed=60 + T)
-                     for T in SWEEP_T}
-    out["tile_cost"] = {d: tile_cost(d, H, K, seed=50 + d)
-                        for d, H, K in ((64, 16, 8), (128, 16, 8), (256, 16, 1))}
-    return out
 
 
 def tile_cost(d, H, K, seed) -> dict:
@@ -419,6 +360,13 @@ def tile_cost(d, H, K, seed) -> dict:
     return res
 
 
+def phase_tile_cost() -> dict:
+    """A bring-up diagnostic, not run by default: the wgmma kernel's cost
+    of one kv tile at d = 64, 128, 256 (``tile_cost``)."""
+    return {d: tile_cost(d, H, K, seed=50 + d)
+            for d, H, K in ((64, 16, 8), (128, 16, 8), (256, 16, 1))}
+
+
 FLASH_SERVING = {  # (B, T, S, H, K, d, window) of a 512-token prefill
     "qwen3-1.7b": (1, 512, 512, 16, 8, 128, None),
     "granite-moe-3b-a800m": (1, 512, 512, 24, 8, 64, None),
@@ -437,7 +385,7 @@ def phase_kernels() -> dict:
     (m) recurrentgemma past its window; (o)-(w) the wgmma kernel's edges in
     bf16: T = 1, T < 64, T != S (causal and not), GQA 3 and 16 with ragged
     T, B = 2 with S no multiple of the kv tile, a window inside one kv
-    tile, and q tiles cut into kv pieces of which the last is shorter."""
+    tile, and 16 and 11 q tiles a head with ragged T (long kv walks)."""
     bf16, f32 = torch.bfloat16, torch.float32
     shapes = {}
     for label, arch, seed in (("(a) main path", "qwen3-1.7b", 1),
@@ -469,8 +417,8 @@ def phase_kernels() -> dict:
              ("(s) GQA 16 ragged T", 1, 300, 300, 16, 1, 256, bf16, True, 2048, 21),
              ("(t) B = 2 ragged S", 2, 200, 200, 8, 4, 128, bf16, True, None, 22),
              ("(u) window inside a kv tile", 1, 256, 256, 8, 2, 128, bf16, True, 20, 23),
-             ("(v) uneven pieces", 1, 1000, 1000, 2, 1, 128, bf16, True, None, 24),
-             ("(w) uneven pieces, d=64", 1, 700, 700, 6, 2, 64, bf16, True, None, 25))
+             ("(v) long kv walks", 1, 1000, 1000, 2, 1, 128, bf16, True, None, 24),
+             ("(w) long kv walks, d=64", 1, 700, 700, 6, 2, 64, bf16, True, None, 25))
     worst = 0.0
     for *args, seed in cases:
         worst = max(worst, flash_case(*args, seed=seed)["max_abs_err"])
@@ -1705,7 +1653,7 @@ def serve_model(arch) -> dict:
 ONLY_PHASES = {"kernels": lambda: phase_kernels(), "ssd_scan": lambda: phase_ssd_scan(),
                "rglru_scan": lambda: phase_rglru_scan(),
                "rmsnorm": lambda: phase_rmsnorm(), "cold_scan": lambda: phase_cold_scan(),
-               "flash_sweep": lambda: phase_flash_sweep()}
+               "tile_cost": lambda: phase_tile_cost()}
 
 
 def main():
@@ -1768,8 +1716,8 @@ def main():
         "library_ms": fa["library_ms"],
         "library": "torch.nn.functional.scaled_dot_product_attention",
         "shapes": {arch: {k: r[k] for k in (
-            "shape", "window", "kv_split", "pieces_per_head", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms", "max_abs_err")}
+            "shape", "window", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "max_abs_err")}
             for arch, r in fa["shapes"].items()},
         "launches_by_model": {m["arch"]: m["launches"]["flash_attention"]
                               for m in served if m["launches"]["flash_attention"]},

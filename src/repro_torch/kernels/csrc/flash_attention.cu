@@ -45,21 +45,15 @@
 //     whole. (Written with a branch per element and exp2f, it took longer
 //     than both products together.) A tile is QK^T, softmax, PV in turn:
 //     issuing QK^T of the next tile before PV of this one measured slower.
-//   * Schedule. One q tile's 64 rows against its reachable kv tiles is the
-//     unit of work; under a causal mask q tile i reaches i+1 kv tiles. The
-//     wrapper may cut a long q tile's kv range into pieces of at most
-//     kv_split tiles, each its own block. It does so only into SMs that
-//     would otherwise idle (whole q tiles when there are at least as many
-//     as SMs): on the card, two blocks that share an SM gave no gain at the
-//     served prefill shapes, and a split q tile pays for its partials and
-//     their combine (chip_smoke.py's split sweep, PERF.md). Each piece of a
-//     split q tile writes (m, l, unnormalised f32 acc) to scratch, and the
-//     piece that finishes last (a per-q-tile counter) combines them
-//     exactly: M = max m_j, O = sum_j acc_j 2^((m_j - M) scale) /
-//     max(sum_j l_j 2^((m_j - M) scale), 1e-30); a piece with no reachable
-//     key has m = -1e30, l = 0, acc = 0 and adds nothing. Blocks run pieces
-//     longest first (the item index is the slowest grid axis). Unsplit q
-//     tiles write O directly.
+//   * Schedule. A block is one q tile (64 rows of one head) against its
+//     reachable kv tiles; under a causal mask q tile i reaches i+1 kv
+//     tiles. Blocks run the longest q tiles first (the q tile is the
+//     slowest grid axis, counted from the last). Cutting a long q tile's
+//     kv range over several blocks, with an exact combine of their (m, l,
+//     acc) partials, was built and timed on the card: at every served head
+//     shape and every prompt length from 256 to 512 it was 15-51% slower
+//     than whole q tiles, also where whole q tiles leave SMs idle
+//     (PERF.md), so the kernel has no split.
 //   * Only the tiles that the causal and window masks leave reachable are
 //     loaded.
 //   * A block is 160 threads; an SM holds 3 at d = 64, 2 at d = 128 (80 KB
@@ -68,12 +62,13 @@
 //     roles, so setmaxnreg is not used: d = 256 holds its 128 O
 //     accumulators in the 255 registers a thread may have at one block per
 //     SM.
-//   * Host cost: each launch encodes three tensor maps on the host
-//     (cuTensorMapEncodeTiled fills a 128-byte descriptor from the shape,
-//     strides and base address; no device work, no synchronisation) and
-//     passes them by value as __grid_constant__ parameters, so a launch
-//     costs three encodes more than a plain one; the shared-memory
-//     attribute is set once per kernel and device, not per launch.
+//   * Host cost: the tensor maps are passed by value as __grid_constant__
+//     parameters. cuTensorMapEncodeTiled takes 2.6-4.1 us a call on the
+//     H100 machine's host, three a launch, and cuTensorMapReplaceAddress
+//     0.5-0.9 us (tools/flash_ab.py), so a map is encoded once per shape
+//     and cached, and a launch copies the cached map and sets its base
+//     address. The shared-memory attribute is set once per kernel and
+//     device, not per launch.
 //
 // bfloat16, d in {16, 32}: tensor cores through mma.sync m16n8k16 (bf16 in,
 // f32 accumulate), 4 warps of 16 query rows, K/V tiles by cp.async into two
@@ -90,7 +85,10 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+#include <array>
 #include <atomic>
+#include <map>
+#include <mutex>
 
 namespace {
 
@@ -123,8 +121,8 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // ---------------------------------------------------------------------------
-// The q-tile / kv-piece plan, shared by the kernels (and mirrored by
-// kernels/flash_attention.py::plan_items, which the CPU tests check)
+// The reachable kv tiles of a q tile (mirrored by
+// kernels/flash_attention.py::kv_tiles, which the CPU tests check)
 // ---------------------------------------------------------------------------
 constexpr int TILE = 64;  // query rows per q tile, keys per kv tile
 
@@ -137,43 +135,6 @@ __host__ __device__ __forceinline__ void kv_tiles(int qt, int Tq, int S, int cau
   const int k_lo = window >= 0 && q0 - window + 1 > 0 ? q0 - window + 1 : 0;
   lo = k_lo / TILE;
   hi = k_lo <= k_hi ? k_hi / TILE : lo - 1;
-}
-
-__host__ __device__ __forceinline__ int n_pieces(int n_tiles, int kv_split) {
-  return n_tiles <= 0 ? 1 : (n_tiles + kv_split - 1) / kv_split;
-}
-
-struct Piece {
-  int qt;      // q tile
-  int kt0;     // first kv tile
-  int kt1;     // one past the last kv tile
-  int count;   // pieces of this q tile
-  int first;   // item index of its first piece
-};
-
-// item -> piece: q tiles from the last (most kv tiles) down, each q tile's
-// pieces in kv order
-__device__ __forceinline__ Piece locate(int item, int Tq, int S, int causal,
-                                        int window, int kv_split) {
-  const int n_qt = (Tq + TILE - 1) / TILE;
-  Piece p{0, 0, 0, 1, 0};
-  int first = 0;
-  for (int qt = n_qt - 1; qt >= 0; --qt) {
-    int lo, hi;
-    kv_tiles(qt, Tq, S, causal, window, lo, hi);
-    const int c = n_pieces(hi - lo + 1, kv_split);
-    if (item < first + c) {
-      const int j = item - first;
-      p.qt = qt;
-      p.kt0 = lo + j * kv_split;
-      p.kt1 = min(lo + (j + 1) * kv_split, hi + 1);
-      p.count = c;
-      p.first = first;
-      return p;
-    }
-    first += c;
-  }
-  return p;
 }
 
 // ---------------------------------------------------------------------------
@@ -308,10 +269,9 @@ constexpr int ATOM_BYTES = TILE * 128;  // 64 rows of one 64-column atom
 
 template <int D>
 constexpr int hopper_smem() {
-  // Q tile, STAGES K and V tiles, 1 + 4 STAGES mbarriers, the combine's
-  // row statistics and flag, slack to align to 1024
-  return TILE * D * 2 * (1 + 2 * STAGES) + 8 * (1 + 4 * STAGES) + 8 * TILE + 16 +
-         1024;
+  // Q tile, STAGES K and V tiles, 1 + 4 STAGES mbarriers, slack to align
+  // to 1024
+  return TILE * D * 2 * (1 + 2 * STAGES) + 8 * (1 + 4 * STAGES) + 1024;
 }
 
 // S (64 x 64 f32) = Q K^T for a K tile: both operands in shared memory,
@@ -417,20 +377,13 @@ __device__ __forceinline__ void softmax_tile(float (&s_acc)[32], uint32_t (&p)[T
   }
 }
 
-// named barrier of the consumer warpgroup (barrier 0 is __syncthreads)
-__device__ __forceinline__ void consumer_sync() {
-  asm volatile("bar.sync 1, 128;\n" ::: "memory");
-}
-
 template <int D>
 __global__ void __launch_bounds__(HOP_THREADS, D == 64 ? 3 : D == 128 ? 2 : 1)
 flash_fwd_hopper(const __grid_constant__ CUtensorMap qmap,
                  const __grid_constant__ CUtensorMap kmap,
                  const __grid_constant__ CUtensorMap vmap,
-                 __nv_bfloat16* __restrict__ o, float* __restrict__ part_acc,
-                 float* __restrict__ part_ml, int* __restrict__ counters, int Tq,
-                 int S, int H, int K, int causal, int window, float scale_log2,
-                 int kv_split, int items) {
+                 __nv_bfloat16* __restrict__ o, int Tq, int S, int H, int K,
+                 int causal, int window, float scale_log2) {
   constexpr int ATOMS = D / 64;
   constexpr int TILE_BYTES = TILE * D * 2;  // one Q, K or V tile
   extern __shared__ unsigned char smem_raw[];
@@ -443,15 +396,14 @@ flash_fwd_hopper(const __grid_constant__ CUtensorMap qmap,
   uint64_t* v_full = k_full + STAGES;
   uint64_t* k_empty = v_full + STAGES;
   uint64_t* v_empty = k_empty + STAGES;
-  float* m_max = reinterpret_cast<float*>(v_empty + STAGES);
-  float* inv_l = m_max + TILE;
-  int* last = reinterpret_cast<int*>(inv_l + TILE);
 
-  const int h = blockIdx.x, b = blockIdx.y, item = blockIdx.z;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int qt = gridDim.z - 1 - blockIdx.z;  // most kv tiles first
   const int kh = h / (H / K);
-  const Piece pc = locate(item, Tq, S, causal, window, kv_split);
-  const int q0 = pc.qt * TILE;
-  const int n = max(0, pc.kt1 - pc.kt0);
+  int kt0, kt_hi;
+  kv_tiles(qt, Tq, S, causal, window, kt0, kt_hi);
+  const int q0 = qt * TILE;
+  const int n = max(0, kt_hi - kt0 + 1);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
   if (tid == 0) {
@@ -488,7 +440,7 @@ flash_fwd_hopper(const __grid_constant__ CUtensorMap qmap,
         mbar_expect_tx(full + st, TILE_BYTES);
         for (int a = 0; a < ATOMS; ++a)
           tma_load_4d(dst + a * ATOM_BYTES, map, full + st, a * 64, kh,
-                      (pc.kt0 + i) * TILE, b);
+                      (kt0 + i) * TILE, b);
       }
     }
     return;
@@ -517,7 +469,7 @@ flash_fwd_hopper(const __grid_constant__ CUtensorMap qmap,
     fence_regs(s_acc);
     __syncwarp();
     if (lane == 0) mbar_arrive(k_empty);  // K stage 0 may be refilled
-    softmax_tile(s_acc, p_cur, m_r, alpha, rsum, pc.kt0 * TILE, q0, warp, row0, tig, S,
+    softmax_tile(s_acc, p_cur, m_r, alpha, rsum, kt0 * TILE, q0, warp, row0, tig, S,
                  causal, window, scale_log2);
     l_r[0] = rsum[0];
     l_r[1] = rsum[1];
@@ -532,7 +484,7 @@ flash_fwd_hopper(const __grid_constant__ CUtensorMap qmap,
         fence_regs(s_acc);
         __syncwarp();
         if (lane == 0) mbar_arrive(k_empty + st);  // K stage st may be refilled
-        softmax_tile(s_acc, p_cur, m_r, alpha, rsum, (pc.kt0 + j) * TILE, q0, warp,
+        softmax_tile(s_acc, p_cur, m_r, alpha, rsum, (kt0 + j) * TILE, q0, warp,
                      row0, tig, S, causal, window, scale_log2);
 #pragma unroll
         for (int a = 0; a < ATOMS; ++a)
@@ -556,97 +508,19 @@ flash_fwd_hopper(const __grid_constant__ CUtensorMap qmap,
     l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
     l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
   }
-  if (pc.count == 1) {
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int t = row0 + r * 8;
-      if (t >= Tq) continue;
-      const float inv = 1.f / fmaxf(l_r[r], 1e-30f);
-      __nv_bfloat16* out = o + (((size_t)b * Tq + t) * H + h) * D + tig * 2;
+  for (int r = 0; r < 2; ++r) {
+    const int t = row0 + r * 8;
+    if (t >= Tq) continue;
+    const float inv = 1.f / fmaxf(l_r[r], 1e-30f);
+    __nv_bfloat16* out = o + (((size_t)b * Tq + t) * H + h) * D + tig * 2;
 #pragma unroll
-      for (int a = 0; a < ATOMS; ++a)
+    for (int a = 0; a < ATOMS; ++a)
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
-          *reinterpret_cast<__nv_bfloat162*>(out + a * 64 + j * 8) =
-              __floats2bfloat162_rn(o_acc[a][4 * j + 2 * r] * inv,
-                                    o_acc[a][4 * j + 2 * r + 1] * inv);
-    }
-  } else {
-    // one piece of a split q tile: (m, l, unnormalised acc) to the scratch;
-    // the piece that finishes last combines them all
-    const size_t slot = ((size_t)b * H + h) * items + item;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const size_t row = slot * TILE + warp * 16 + g + r * 8;
-      float* pa = part_acc + row * D + tig * 2;
-#pragma unroll
-      for (int a = 0; a < ATOMS; ++a)
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          *reinterpret_cast<float2*>(pa + a * 64 + j * 8) =
-              make_float2(o_acc[a][4 * j + 2 * r], o_acc[a][4 * j + 2 * r + 1]);
-      if (tig == 0)
-        *reinterpret_cast<float2*>(part_ml + row * 2) = make_float2(m_r[r], l_r[r]);
-    }
-    __threadfence();
-    consumer_sync();
-    int* counter = counters + ((size_t)b * H + h) * ((Tq + TILE - 1) / TILE) + pc.qt;
-    if (tid == 0) *last = atomicAdd(counter, 1) == pc.count - 1;
-    consumer_sync();
-    if (!*last) return;
-    __threadfence();
-    // M = max m_j, O = sum_j acc_j 2^(m_j - M) / max(sum_j l_j 2^(m_j - M), 1e-30)
-    const size_t slot0 = ((size_t)b * H + h) * items + pc.first;
-    if (tid < TILE) {
-      float M = NEG_INF;
-      for (int j = 0; j < pc.count; ++j)
-        M = fmaxf(M, __ldcg(part_ml + ((slot0 + j) * TILE + tid) * 2));
-      float L = 0.f;
-      for (int j = 0; j < pc.count; ++j) {
-        const float2 ml = __ldcg(reinterpret_cast<const float2*>(
-            part_ml + ((slot0 + j) * TILE + tid) * 2));
-        L += ml.y * ex2((ml.x - M) * scale_log2);
-      }
-      m_max[tid] = M;
-      inv_l[tid] = 1.f / fmaxf(L, 1e-30f);
-    }
-    consumer_sync();
-    // thread tid owns column group c = tid % (D/4) of rows tid / (D/4) + k *
-    // (512/D); CHUNK such float4s are summed over the pieces together, so
-    // their loads are in flight at once
-    constexpr int PER = TILE * D / 4 / 128, CHUNK = PER < 8 ? PER : 8;
-    constexpr int ROW_STEP = 128 / (D / 4);
-    const int c = (tid % (D / 4)) * 4, r0 = tid / (D / 4);
-#pragma unroll
-    for (int k0 = 0; k0 < PER; k0 += CHUNK) {
-      float4 acc[CHUNK];
-#pragma unroll
-      for (int k = 0; k < CHUNK; ++k) acc[k] = make_float4(0.f, 0.f, 0.f, 0.f);
-      for (int j = 0; j < pc.count; ++j) {
-        const size_t row0p = (slot0 + j) * TILE;
-#pragma unroll
-        for (int k = 0; k < CHUNK; ++k) {
-          const int r = r0 + (k0 + k) * ROW_STEP;
-          const float w = ex2((__ldcg(part_ml + (row0p + r) * 2) - m_max[r]) * scale_log2);
-          const float4 v = __ldcg(reinterpret_cast<const float4*>(part_acc + (row0p + r) * D + c));
-          acc[k].x += w * v.x;
-          acc[k].y += w * v.y;
-          acc[k].z += w * v.z;
-          acc[k].w += w * v.w;
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < CHUNK; ++k) {
-        const int r = r0 + (k0 + k) * ROW_STEP, t = q0 + r;
-        if (t >= Tq) continue;
-        const float sc = inv_l[r];
-        uint2 packed;
-        packed.x = pack_bf16(acc[k].x * sc, acc[k].y * sc);
-        packed.y = pack_bf16(acc[k].z * sc, acc[k].w * sc);
-        *reinterpret_cast<uint2*>(o + (((size_t)b * Tq + t) * H + h) * D + c) = packed;
-      }
-    }
-    if (tid == 0) *counter = 0;  // ready for the next call on this stream
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(out + a * 64 + j * 8) =
+            __floats2bfloat162_rn(o_acc[a][4 * j + 2 * r] * inv,
+                                  o_acc[a][4 * j + 2 * r + 1] * inv);
   }
 }
 
@@ -1026,40 +900,44 @@ bool encode_map(CUtensorMap* map, const void* ptr, int D, int heads, int rows,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// the number of pieces (blocks along the item axis) of the plan
-int plan_items(int Tq, int S, int causal, int window, int kv_split) {
-  int items = 0;
-  for (int qt = 0; qt < (Tq + TILE - 1) / TILE; ++qt) {
-    int lo, hi;
-    kv_tiles(qt, Tq, S, causal, window, lo, hi);
-    items += n_pieces(hi - lo + 1, kv_split);
+// the same map from a cache of one encoded map per shape, with its base
+// address replaced: a launch pays a copy and cuTensorMapReplaceAddress, not
+// an encode
+bool tensor_map(CUtensorMap* map, const void* ptr, int D, int heads, int rows,
+                int B) {
+  static std::mutex mu;
+  static std::map<std::array<int, 4>, CUtensorMap> cache;
+  const std::array<int, 4> key{D, heads, rows, B};
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    auto it = cache.find(key);
+    if (it == cache.end()) {
+      CUtensorMap m;
+      if (!encode_map(&m, ptr, D, heads, rows, B)) return false;
+      if (cache.size() >= 4096) cache.clear();  // bounded over many prompt lengths
+      it = cache.emplace(key, m).first;
+    }
+    *map = it->second;
   }
-  return items;
+  return cuTensorMapReplaceAddress(map, const_cast<void*>(ptr)) == CUDA_SUCCESS;
 }
 
 template <int D>
 cudaError_t launch_hopper(const void* q, const void* k, const void* v, void* o,
-                          void* part_acc, void* part_ml, void* counters, int B,
-                          int Tq, int S, int H, int K, int causal, int window,
-                          float scale, int kv_split, int items,
-                          cudaStream_t stream) {
+                          int B, int Tq, int S, int H, int K, int causal,
+                          int window, float scale, cudaStream_t stream) {
   const int n_qt = (Tq + TILE - 1) / TILE;
-  if (kv_split < 1 || items != plan_items(Tq, S, causal, window, kv_split) ||
-      items > 65535 || B > 65535)
-    return cudaErrorInvalidValue;
-  if (items > n_qt && (part_acc == nullptr || part_ml == nullptr || counters == nullptr))
-    return cudaErrorInvalidValue;  // split q tiles need the scratch
+  if (n_qt > 65535 || B > 65535) return cudaErrorInvalidValue;  // grid z, y
   CUtensorMap qm, km, vm;
-  if (!encode_map(&qm, q, D, H, Tq, B) || !encode_map(&km, k, D, K, S, B) ||
-      !encode_map(&vm, v, D, K, S, B))
+  if (!tensor_map(&qm, q, D, H, Tq, B) || !tensor_map(&km, k, D, K, S, B) ||
+      !tensor_map(&vm, v, D, K, S, B))
     return cudaErrorInvalidValue;
   static SmemAttr attr;
   cudaError_t err = attr.ensure((const void*)flash_fwd_hopper<D>);
   if (err != cudaSuccess) return err;
-  flash_fwd_hopper<D><<<dim3(H, B, items), HOP_THREADS, hopper_smem<D>(), stream>>>(
-      qm, km, vm, static_cast<__nv_bfloat16*>(o), static_cast<float*>(part_acc),
-      static_cast<float*>(part_ml), static_cast<int*>(counters), Tq, S, H, K,
-      causal, window, scale * 1.4426950408889634f, kv_split, items);
+  flash_fwd_hopper<D><<<dim3(H, B, n_qt), HOP_THREADS, hopper_smem<D>(), stream>>>(
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), Tq, S, H, K, causal, window,
+      scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
@@ -1110,20 +988,11 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
 
 // q: (B, Tq, H, D), k/v: (B, S, K, D), o: (B, Tq, H, D), all contiguous and
 // 16-byte aligned. dtype: 0 = float32, 1 = bfloat16. window < 0 means no
-// window. bf16 with D in {64, 128, 256} runs the plan of kv_split tiles a
-// piece (`items` pieces a head, as plan_items counts them); when a q tile
-// has more than one piece, part_acc (B*H*items*64*D floats) and part_ml
-// (B*H*items*64*2 floats) are the pieces' scratch and counters
-// (B*H*ceil(Tq/64) ints, zero, left zero) count the pieces done per q
-// tile; else all three are unused. Returns the CUDA error of the launch
-// (0 on success).
+// window. Returns the CUDA error of the launch (0 on success).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
-                                   void* o, void* part_acc, void* part_ml,
-                                   void* counters, int B, int Tq, int S, int H,
-                                   int K, int D,
-                                   int causal, int window, float scale,
-                                   int kv_split, int items, int dtype,
-                                   void* stream) {
+                                   void* o, int B, int Tq, int S, int H,
+                                   int K, int D, int causal, int window,
+                                   float scale, int dtype, void* stream) {
   if (B <= 0 || Tq <= 0 || S <= 0 || K <= 0 || H % K != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1132,15 +1001,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   }
   if (dtype == 1) {
     switch (D) {
-      case 64:
-        return (int)launch_hopper<64>(q, k, v, o, part_acc, part_ml, counters, B, Tq, S, H,
-                                      K, causal, window, scale, kv_split, items, st);
-      case 128:
-        return (int)launch_hopper<128>(q, k, v, o, part_acc, part_ml, counters, B, Tq, S, H,
-                                       K, causal, window, scale, kv_split, items, st);
-      case 256:
-        return (int)launch_hopper<256>(q, k, v, o, part_acc, part_ml, counters, B, Tq, S, H,
-                                       K, causal, window, scale, kv_split, items, st);
+      case 64: return (int)launch_hopper<64>(q, k, v, o, B, Tq, S, H, K, causal, window, scale, st);
+      case 128: return (int)launch_hopper<128>(q, k, v, o, B, Tq, S, H, K, causal, window, scale, st);
+      case 256: return (int)launch_hopper<256>(q, k, v, o, B, Tq, S, H, K, causal, window, scale, st);
       case 16: return (int)launch_bf16<16>(q, k, v, o, B, Tq, S, H, K, causal, window, scale, st);
       case 32: return (int)launch_bf16<32>(q, k, v, o, B, Tq, S, H, K, causal, window, scale, st);
       default: return (int)cudaErrorInvalidValue;

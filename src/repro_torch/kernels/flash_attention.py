@@ -10,16 +10,10 @@ bfloat16 runs its products on the tensor cores (``wgmma`` with TMA-fed K/V
 for d in {64, 128, 256}, ``mma.sync`` for d in {16, 32}; f32 accumulate);
 float32 keeps them in f32 on the CUDA cores.
 
-The wgmma kernel's schedule is planned here: when the q tiles (64 rows of
-one head) leave SMs idle, a q tile whose reachable kv tiles outnumber
-``kv_split`` is cut into pieces of at most ``kv_split`` tiles, each its own
-block, and the pieces' (m, l, acc)
-partials are combined exactly by the piece that finishes last (a count of
-finished pieces per q tile, in a zeroed buffer kept per device and stream,
-which the kernel leaves zero). ``plan_items`` lists the
-pieces in the kernel's order, ``choose_kv_split`` picks the piece length
-from the card's SM count, and ``flash_attention_pieces`` is the same
-arithmetic in plain PyTorch (the CPU tests hold it to the reference).
+A block of the wgmma kernel is one q tile (64 rows of one head) against
+the kv tiles it reaches, longest q tiles first. ``plan_tiles`` lists them
+in the kernel's order and ``flash_attention_tiles`` is the kernel's
+arithmetic in plain PyTorch (the CPU tests hold both to the reference).
 
 ``flash_attention`` takes the plain version only for CPU tensors. For CUDA
 tensors it always launches the kernel, or raises on what the kernel does
@@ -32,7 +26,6 @@ kernel it takes any T and S: ragged tiles are masked inside the kernel.
 from __future__ import annotations
 
 import ctypes
-import functools
 import threading
 
 import torch
@@ -43,13 +36,12 @@ NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128, 256)
 WGMMA_HEAD_DIMS = (64, 128, 256)  # bf16 head dims of the wgmma kernel
 TILE = 64  # query rows per q tile, keys per kv tile
-GRID_MAX = 65535  # the kernel's batch and item grid axes
+GRID_MAX = 65535  # the kernels' batch and q-tile grid axes
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _lib_lock = threading.Lock()
 _count_lock = threading.Lock()
 _lib = None
-_counters: dict = {}  # (device, stream) -> zeroed int32 buffer, left zero
 
 
 def flash_attention_plain(q, k, v, *, causal=True, window=None, scale=None):
@@ -84,45 +76,24 @@ def kv_tiles(qt, T, S, causal, window):
     return lo, (k_hi // TILE if k_lo <= k_hi else lo - 1)
 
 
-def plan_items(T, S, causal, window, kv_split):
-    """The wgmma kernel's pieces in item (block) order: q tiles from the
-    last (most kv tiles under a causal mask) down, each q tile's pieces in
-    kv order. Each is (q tile, first kv tile, one past its last, pieces of
-    its q tile); a q tile with no reachable key is one empty piece."""
-    items = []
+def plan_tiles(T, S, causal, window):
+    """The wgmma kernel's blocks of one head in launch order: q tiles from
+    the last (most kv tiles under a causal mask) down, each as (q tile,
+    first kv tile, one past its last); a q tile with no reachable key has
+    none."""
+    out = []
     for qt in range((T + TILE - 1) // TILE - 1, -1, -1):
         lo, hi = kv_tiles(qt, T, S, causal, window)
-        count = max(1, -(-(hi - lo + 1) // kv_split))
-        items += [(qt, lo + j * kv_split, min(lo + (j + 1) * kv_split, hi + 1),
-                   count) for j in range(count)]
-    return items
+        out.append((qt, lo, max(lo, hi + 1)))
+    return out
 
 
-def choose_kv_split(T, S, causal, window, B, H, d, sm_count):
-    """Piece length in kv tiles: whole q tiles when they already give every
-    SM a block; else the shortest pieces of which there are no more than
-    SMs. Pieces go only to idle SMs: on the card two blocks that share an
-    SM bring no gain at the served prefill shapes, and a split q tile pays
-    for its partials and their combine (``PERF.md``, PR 15)."""
-    n_qt = (T + TILE - 1) // TILE
-    tiles = [max(0, hi - lo + 1) for lo, hi in
-             (kv_tiles(qt, T, S, causal, window) for qt in range(n_qt))]
-    n_max = max(max(tiles), 1)
-    for c in range(1, n_max):
-        if B * H * sum(max(1, -(-n // c)) for n in tiles) <= sm_count:
-            return c
-    return n_max
-
-
-def flash_attention_pieces(q, k, v, *, causal=True, window=None, scale=None,
-                           kv_split=1):
-    """The wgmma kernel's arithmetic in plain PyTorch: each piece of
-    ``plan_items`` runs the online softmax over its kv tiles in base 2 (p
-    rounded to v's dtype before PV, f32 accumulators), and a q tile's pieces
-    combine as M = max m_j, O = sum_j acc_j 2^(m_j - M) / max(sum_j l_j
-    2^(m_j - M), 1e-30). A piece with no reachable key has m = -1e30, l = 0,
-    acc = 0. Fully masked rows give 0 here, as in the kernel (not the mean
-    of V, as in ``flash_attention_plain``)."""
+def flash_attention_tiles(q, k, v, *, causal=True, window=None, scale=None):
+    """The wgmma kernel's arithmetic in plain PyTorch: each q tile of
+    ``plan_tiles`` runs the online softmax over its kv tiles in base 2 (p
+    rounded to v's dtype before PV, f32 accumulators) and writes
+    acc / max(l, 1e-30). Fully masked rows give 0 here, as in the kernel
+    (not the mean of V, as in ``flash_attention_plain``)."""
     B, T, H, d = q.shape
     S, K = k.shape[1], k.shape[2]
     G = H // K
@@ -132,8 +103,7 @@ def flash_attention_pieces(q, k, v, *, causal=True, window=None, scale=None,
     kx = k.repeat_interleave(G, dim=2)
     vx = v.repeat_interleave(G, dim=2)
     out = torch.zeros(B, T, H, d, dtype=q.dtype, device=q.device)
-    pieces = {}
-    for qt, kt0, kt1, _ in plan_items(T, S, causal, window, kv_split):
+    for qt, kt0, kt1 in plan_tiles(T, S, causal, window):
         t = torch.arange(qt * TILE, min(qt * TILE + TILE, T), device=q.device)
         m = torch.full((B, H, len(t)), NEG_INF, dtype=f32, device=q.device)
         l = torch.zeros_like(m)
@@ -156,54 +126,9 @@ def flash_attention_pieces(q, k, v, *, causal=True, window=None, scale=None,
             acc = acc * alpha[..., None] + torch.einsum(
                 "bhts,bshd->bhtd", p.to(v.dtype).float(), vx[:, s].float())
             m = m_new
-        pieces.setdefault(qt, []).append((m, l, acc))
-    for qt, parts in pieces.items():
-        M = torch.stack([m for m, _, _ in parts]).amax(0)
-        w = [torch.exp2(m - M) for m, _, _ in parts]
-        L = sum(l * wj for (_, l, _), wj in zip(parts, w))
-        O = sum(acc * wj[..., None] for (_, _, acc), wj in zip(parts, w))
-        O = O / torch.clamp(L, min=1e-30)[..., None]
-        out[:, qt * TILE:qt * TILE + O.shape[2]] = O.permute(0, 2, 1, 3).to(q.dtype)
+        o = acc / torch.clamp(l, min=1e-30)[..., None]
+        out[:, qt * TILE:qt * TILE + len(t)] = o.permute(0, 2, 1, 3).to(q.dtype)
     return out
-
-
-@functools.lru_cache(maxsize=256)
-def _sm_count(index):
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def _counter_buffer(device, stream, n):
-    """A zeroed int32 buffer of at least n counters for kernels on
-    ``stream``: the kernel zeroes each counter it uses, so one buffer
-    serves every call in stream order."""
-    key = (device.index, stream)
-    with _lib_lock:
-        buf = _counters.get(key)
-        if buf is None or buf.numel() < n:
-            buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
-            _counters[key] = buf
-        return buf
-
-
-def launch_plan(q, k, *, causal=True, window=None):
-    """(kv_split, pieces a head, whether a q tile is split) of the wgmma
-    kernel for CUDA q/k of these shapes; None where another kernel runs."""
-    B, T, H, d = q.shape
-    if q.dtype != torch.bfloat16 or d not in WGMMA_HEAD_DIMS:
-        return None
-    return _plan(T, k.shape[1], bool(causal), window, B, H, d,
-                 _sm_count(q.device.index))
-
-
-@functools.lru_cache(maxsize=1024)
-def _plan(T, S, causal, window, B, H, d, sm_count):
-    """(kv_split, items, split): the wrapper's plan for one call shape."""
-    kv_split = choose_kv_split(T, S, causal, window, B, H, d, sm_count)
-    items = len(plan_items(T, S, causal, window, kv_split))
-    if items > GRID_MAX:
-        raise ValueError(f"flash_attention plans {items} pieces a head "
-                         f"(T={T}, S={S}), over the grid limit {GRID_MAX}")
-    return kv_split, items, items > (T + TILE - 1) // TILE
 
 
 def _kernel_lib():
@@ -212,9 +137,8 @@ def _kernel_lib():
         if _lib is None:
             lib = build.load("flash_attention")
             fn = lib.flash_attention_fwd
-            fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
-                           + [ctypes.c_float] + [ctypes.c_int] * 3
-                           + [ctypes.c_void_p])
+            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+                           + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
             fn.restype = ctypes.c_int
             _lib = lib
         return _lib
@@ -245,9 +169,10 @@ def _check(q, k, v, window):
                          "aligned")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
-    if B > GRID_MAX:
-        raise ValueError(f"flash_attention takes a batch of at most {GRID_MAX}, "
-                         f"got {B}")
+    if B > GRID_MAX or -(-T // TILE) > GRID_MAX:
+        raise ValueError(f"flash_attention takes a batch of at most {GRID_MAX} "
+                         f"and at most {GRID_MAX} q tiles of {TILE} rows, got "
+                         f"B={B}, T={T}")
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, scale=None):
@@ -265,22 +190,11 @@ def flash_attention(q, k, v, *, causal=True, window=None, scale=None):
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        kv_split, items, scratch = 1, 0, (None, None, None)
-        plan = launch_plan(q, k, causal=causal, window=window)
-        if plan is not None:
-            kv_split, items, split = plan
-            if split:  # the pieces' acc, (m, l) and per-q-tile counts
-                f32 = dict(dtype=torch.float32, device=q.device)
-                scratch = (torch.empty(B * H * items * TILE * d, **f32),
-                           torch.empty(B * H * items * TILE * 2, **f32),
-                           _counter_buffer(q.device, stream,
-                                           B * H * -(-T // TILE)))
         err = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            *(None if t is None else t.data_ptr() for t in scratch),
             B, T, S, H, K, d, int(bool(causal)),
-            -1 if window is None else int(window), float(scale), kv_split,
-            items, _DTYPES[q.dtype], stream)
+            -1 if window is None else int(window), float(scale),
+            _DTYPES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error "
                            f"{err} (q {tuple(q.shape)}, k {tuple(k.shape)}, "

@@ -91,21 +91,20 @@ def test_wrapper_rejects_non_cpu_non_cuda_device():
         flash_attention(q, q[:, :, :1], q[:, :, :1])
 
 
-# --- the wgmma kernel's plan and its piecewise arithmetic (host side) ---
-
+# --- the wgmma kernel's tile order and its tile arithmetic (host side) ---
 PLAN_CASES = [
-    # T, S, causal, window, kv_split
-    (512, 512, True, None, 3),      # qwen3's prefill: pieces 3, 3, 2
-    (512, 512, True, 2048, 5),      # recurrentgemma's local layers
-    (300, 300, True, None, 1),      # ragged, every tile its own piece
-    (100, 77, True, 40, 2),         # ragged window, T > S
-    (1, 300, False, None, 1),       # T = 1
-    (37, 37, True, None, 5),        # T < 64
-    (128, 256, True, None, 1),      # T != S
-    (128, 256, False, None, 3),     # T != S, non-causal, uneven pieces
-    (2500, 2500, True, 2048, 7),    # the window binds
-    (256, 256, True, 20, 1),        # window inside one kv tile
-    (130, 77, True, 40, 2),         # rows that reach no key
+    # T, S, causal, window
+    (512, 512, True, None),      # qwen3's prefill
+    (512, 512, True, 2048),      # recurrentgemma's local layers
+    (300, 300, True, None),      # ragged
+    (100, 77, True, 40),         # ragged window, T > S
+    (1, 300, False, None),       # T = 1
+    (37, 37, True, None),        # T < 64
+    (128, 256, True, None),      # T != S
+    (128, 256, False, None),     # T != S, non-causal
+    (2500, 2500, True, 2048),    # the window binds
+    (256, 256, True, 20),        # window inside one kv tile
+    (130, 77, True, 40),         # rows that reach no key
 ]
 
 
@@ -120,57 +119,63 @@ def _mask(T, S, causal, window):
     return m
 
 
-@pytest.mark.parametrize("T,S,causal,window,kv_split", PLAN_CASES)
-def test_plan_covers_every_reachable_pair_once(T, S, causal, window, kv_split):
+@pytest.mark.parametrize("T,S,causal,window", PLAN_CASES)
+def test_plan_covers_every_reachable_pair_once(T, S, causal, window):
     """Every (query, key) pair the masks leave reachable lies in exactly one
-    piece; pieces of a q tile are consecutive, in kv order, at most
-    kv_split tiles long; q tiles run from the last down."""
-    items = FA.plan_items(T, S, causal, window, kv_split)
+    block's kv tiles; every q tile is one block; q tiles run from the last
+    down, so under a causal mask the longest come first."""
+    blocks = FA.plan_tiles(T, S, causal, window)
     mask = _mask(T, S, causal, window)
     seen = np.zeros((T, S), dtype=int)
-    order = []
-    for qt, kt0, kt1, count in items:
-        assert 0 <= kt1 - kt0 <= kv_split
+    for qt, kt0, kt1 in blocks:
+        assert kt0 <= kt1
         rows = slice(qt * FA.TILE, min(qt * FA.TILE + FA.TILE, T))
         for kt in range(kt0, kt1):
             cols = slice(kt * FA.TILE, min(kt * FA.TILE + FA.TILE, S))
             seen[rows, cols] += mask[rows, cols]
-        order.append((qt, kt0, count))
     np.testing.assert_array_equal(seen, mask.astype(int))
     n_qt = -(-T // FA.TILE)
-    qts = [qt for qt, _, _ in order]
-    assert qts == sorted(qts, reverse=True) and set(qts) == set(range(n_qt))
-    for qt in range(n_qt):
-        mine = [(kt0, c) for q, kt0, c in order if q == qt]
-        assert len(mine) == mine[0][1] and [k for k, _ in mine] == sorted(k for k, _ in mine)
+    assert [qt for qt, _, _ in blocks] == list(range(n_qt - 1, -1, -1))
+    if causal and window is None and T == S:
+        lengths = [kt1 - kt0 for _, kt0, kt1 in blocks]
+        assert lengths == sorted(lengths, reverse=True)
 
 
-@pytest.mark.parametrize("T,S,causal,window,kv_split",
-                         [c for c in PLAN_CASES if c[0] <= 512 and c[:4] != (130, 77, True, 40)])
+@pytest.mark.parametrize("T,S,causal,window",
+                         [c for c in PLAN_CASES if c[0] <= 512 and c != (130, 77, True, 40)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_pieces_match_ref(T, S, causal, window, kv_split, dtype):
-    """The plain attention cut into the plan's kv pieces, each an online
-    softmax in base 2, recombined as the kernel does, equals the JAX
-    package's oracle."""
+def test_tiles_match_ref(T, S, causal, window, dtype):
+    """The plain attention cut into the kernel's q and kv tiles, each q tile
+    an online softmax in base 2 over its kv tiles, equals the JAX package's
+    oracle."""
     arrs = _inputs(1, T, S, 6, 2, 64, seed=T + S)
     (jq, jk, jv), (tq, tk, tv) = _both(arrs, dtype)
-    got = FA.flash_attention_pieces(tq, tk, tv, causal=causal, window=window,
-                                    kv_split=kv_split)
+    got = FA.flash_attention_tiles(tq, tk, tv, causal=causal, window=window)
     want = ref.flash_attention_ref(jq, jk, jv, causal=causal, window=window)
     assert got.dtype == tq.dtype
     np.testing.assert_allclose(_np(got), _np(want), **tol(dtype))
 
 
-def test_pieces_give_zero_on_rows_that_reach_no_key():
-    """T > S + window - 1: the last rows reach no key. Pieces with no key
-    (m = -1e30, l = 0) add nothing, so those rows are 0 (the Pallas kernel
-    and the CUDA kernel agree; the plain versions average V); the other
-    rows equal the oracle."""
+@pytest.mark.parametrize("H,K,d", [(24, 8, 64), (16, 1, 256)])
+def test_tiles_match_ref_at_served_head_shapes(H, K, d):
+    """The tile arithmetic with granite's GQA 24/8 at d = 64 and
+    recurrentgemma's MQA 16/1 at d = 256, ragged T, in bfloat16."""
+    arrs = _inputs(1, 100, 100, H, K, d, seed=H + d)
+    (jq, jk, jv), (tq, tk, tv) = _both(arrs, "bfloat16")
+    got = FA.flash_attention_tiles(tq, tk, tv, causal=True, window=None)
+    want = ref.flash_attention_ref(jq, jk, jv, causal=True, window=None)
+    np.testing.assert_allclose(_np(got), _np(want), **tol("bfloat16"))
+
+
+def test_tiles_give_zero_on_rows_that_reach_no_key():
+    """T > S + window - 1: the last rows reach no key. A q tile with no
+    reachable kv tile (m = -1e30, l = 0) writes 0 (the Pallas kernel and
+    the CUDA kernel agree; the plain versions average V); the other rows
+    equal the oracle."""
     T, S, window = 130, 77, 40
     arrs = _inputs(2, T, S, 4, 2, 64, seed=9)
     (jq, jk, jv), (tq, tk, tv) = _both(arrs, "float32")
-    got = _np(FA.flash_attention_pieces(tq, tk, tv, causal=True, window=window,
-                                        kv_split=1))
+    got = _np(FA.flash_attention_tiles(tq, tk, tv, causal=True, window=window))
     want = _np(ref.flash_attention_ref(jq, jk, jv, causal=True, window=window))
     dead = ~_mask(T, S, True, window).any(axis=1)
     assert dead.sum() == T - (S + window - 1)
@@ -178,36 +183,40 @@ def test_pieces_give_zero_on_rows_that_reach_no_key():
     np.testing.assert_allclose(got[:, ~dead], want[:, ~dead], **tol("float32"))
 
 
-@pytest.mark.parametrize("B,T,S,H,d,window,want_split", [
-    (1, 512, 512, 16, 128, None, 8),    # qwen3-1.7b: 128 whole q tiles
-    (1, 512, 512, 24, 64, None, 8),     # granite-moe-3b-a800m: 192
-    (1, 512, 512, 16, 256, 2048, 8),    # recurrentgemma-9b: 128
-    (1, 1000, 1000, 2, 128, None, 3),   # 32 q tiles: pieces into idle SMs
-    (1, 128, 256, 16, 128, None, 1),    # T != S: 32 q tiles of 1-2 kv tiles
-])
-def test_choose_kv_split_splits_only_into_idle_sms(B, T, S, H, d, window,
-                                                   want_split):
-    """On 132 SMs: whole q tiles when there are at least as many as SMs (the
-    served prefill shapes); otherwise the shortest pieces that still number
-    no more than the SMs."""
-    kv_split = FA.choose_kv_split(T, S, True, window, B, H, d, 132)
-    assert kv_split == want_split
-    pieces = B * H * len(FA.plan_items(T, S, True, window, kv_split))
-    n_qt = -(-T // FA.TILE)
-    if pieces > B * H * n_qt:
-        assert pieces <= 132
-        assert B * H * len(FA.plan_items(T, S, True, window, kv_split - 1)) > 132 \
-            if kv_split > 1 else True
-
-
-def test_plan_rejects_more_pieces_than_the_grid_takes():
-    T = (FA.GRID_MAX + 1) * FA.TILE
-    with pytest.raises(ValueError, match="grid limit"):
-        FA._plan(T, T, True, 1, 1, 1, 64, 132)
-
-
 def test_check_rejects_a_batch_over_the_grid():
     q = torch.zeros((FA.GRID_MAX + 1, 1, 1, 64), dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="batch"):
         FA._check(q, q, q, None)
 
+
+@pytest.mark.parametrize("T", [FA.GRID_MAX * FA.TILE + 1, 2 * FA.GRID_MAX * FA.TILE])
+def test_check_rejects_more_q_tiles_than_the_grid_takes(T):
+    """More q tiles than the kernels' q-tile grid axis takes raises before
+    any build or launch."""
+    q = torch.empty((1, T, 1, 64), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="q tiles"):
+        FA._check(q, q, q, None)
+
+
+@pytest.mark.parametrize("case", ["dtype", "head_dim", "contiguous", "aligned",
+                                  "window", "gqa"])
+def test_check_rejects_what_the_kernels_do_not_take(case):
+    """Each input the kernels do not take raises in ``_check``, before any
+    build or launch."""
+    q = torch.zeros((1, 64, 4, 64), dtype=torch.bfloat16)
+    k = torch.zeros((1, 64, 2, 64), dtype=torch.bfloat16)
+    v, window, err = k, None, ValueError
+    if case == "dtype":
+        q, k, v, err = q.half(), k.half(), v.half(), TypeError
+    elif case == "head_dim":
+        q, k, v = q[..., :48].contiguous(), k[..., :48].contiguous(), v[..., :48].contiguous()
+    elif case == "contiguous":
+        q = torch.zeros((1, 4, 64, 64), dtype=torch.bfloat16).transpose(1, 2)
+    elif case == "aligned":
+        q = torch.zeros(1 * 64 * 4 * 64 + 1, dtype=torch.bfloat16)[1:].view(1, 64, 4, 64)
+    elif case == "window":
+        window = 0
+    elif case == "gqa":
+        k = v = torch.zeros((1, 64, 3, 64), dtype=torch.bfloat16)
+    with pytest.raises(err):
+        FA._check(q, k, v, window)

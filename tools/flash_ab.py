@@ -1,11 +1,11 @@
 """Flash attention's host cost and prefill walls, one checkout against another.
 
-    python3 tools/flash_ab.py ROOT_A ROOT_B
+    python3 tools/flash_ab.py ROOT_A ROOT_B [--turns ABBA]
 
 ROOT_A and ROOT_B are checkouts of this repo (for example a parent commit
 unpacked with ``git archive`` into a directory that ``.gitignore`` lists,
 and the working tree ``.``). Each runs in its own process, in the turns
-A, B, B, A, with ``ROOT/src`` first on the path, so each builds and loads
+A, B, B, A (or ``--turns``), with ``ROOT/src`` first on the path, so each builds and loads
 its own CUDA kernels (into ``ROOT/build/torch_kernels``). A turn measures,
 on the card:
 
@@ -30,6 +30,7 @@ one card; ``--device cpu`` rehearses a turn at the smoke configs.
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import os
@@ -196,16 +197,21 @@ def worker(root: str, device: str) -> dict:
 
 
 def main():
-    if len(sys.argv) >= 3 and sys.argv[1] == "--worker":
-        device = sys.argv[4] if len(sys.argv) == 5 and sys.argv[3] == "--device" else "cuda"
-        print(json.dumps(worker(sys.argv[2], device)), flush=True)
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("roots", nargs="+", help="ROOT_A ROOT_B (or ROOT with --worker)")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--turns", default=TURNS, help="order of the turns, e.g. ABBAABBA")
+    ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.worker:
+        print(json.dumps(worker(args.roots[0], args.device)), flush=True)
         return
-    if len(sys.argv) not in (3, 5):
-        sys.exit(f"usage: {sys.argv[0]} ROOT_A ROOT_B [--device cpu]")
-    roots = {"A": sys.argv[1], "B": sys.argv[2]}
-    extra = sys.argv[3:]
+    if len(args.roots) != 2 or set(args.turns) != {"A", "B"}:
+        ap.error("give two checkouts, and turns of A and B")
+    roots = {"A": args.roots[0], "B": args.roots[1]}
+    extra = ["--device", args.device]
     runs = {"A": [], "B": []}
-    for turn in TURNS:
+    for turn in args.turns:
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker",
                                roots[turn], *extra], capture_output=True, text=True)
         if proc.returncode != 0:
