@@ -15,15 +15,22 @@ no result):
               layers past the window; the wgmma kernel's edges: T = 1,
               T < 64, T != S, GQA 3 and 16 with ragged T, B = 2 with a
               ragged S, a window inside one kv tile, long kv walks with
-              ragged T), ssd_scan (the JAX
+              ragged T; every other head dim the Pallas kernel takes, d =
+              48-240 on the mma.sync and float32 kernels, and
+              hubert-xlarge's d = 80 non-causal shape, timed), ssd_scan (the JAX
               package's kernel-test cases in f32 and bf16, the serving
               dtypes, Q == L, 4 chunks, a chunk of 96 that fills no whole
               C·Bᵀ tile), rglru_scan (the kernel-test cases, T = 300,
               ragged W), rmsnorm (the kernel-test shapes, every served
-              width, mixed x/w dtypes, misaligned rows); timings (CUDA
-              events over 20 back-to-back calls, median of 20) beside the
-              plain version, the library call (F.rms_norm for rmsnorm) or a
-              yardstick (torch.cumsum for rglru_scan), and the bound
+              width, mixed x/w dtypes, misaligned rows; the add and SiLU-gate
+              prologues, add_rmsnorm and gated_rmsnorm, at every served
+              width, mixed and misaligned, the gate's z a column slice as
+              in mamba2); timings (CUDA events over 20 back-to-back calls,
+              median of 20) beside the plain version, the library call
+              (F.rms_norm for rmsnorm) or a yardstick (torch.cumsum for
+              rglru_scan), and the bound; rmsnorm also at the decode
+              shapes (1 and 4 rows of 1024, 1536, 2048, 4096 and qwen3's
+              4-slot qk-norm, 64 x 128)
   Phases 4-7 run for qwen3-1.7b, mamba2-370m, recurrentgemma-9b and
   granite-moe-3b-a800m in turn, each at full width (random bf16 weights
   from seed 0), each model's weights freed before the next loads:
@@ -48,16 +55,23 @@ no result):
               against plain path at every step; the prefetcher's
               side-stream copy to the card, bit-exact
   7. profile  torch.profiler over one warm prefill and 8 decode steps:
-              device busy share, the kernels that take the device time and
-              the ops that launched them, the port's own kernels by name;
-              then the same warm prefill and 4
-              decode steps on the host clock with the norms through the
-              rmsnorm kernel and through the plain version, in turns
+              device busy share, device kernels per prefill and per decode
+              step, the kernels that take the device time and the ops that
+              launched them, the port's own kernels by name; then the same
+              warm prefill and 4 decode steps on the host clock, in turns,
+              with the norms through the rmsnorm kernel and through the
+              plain version, and with the residual adds and mamba2's gate
+              fused into the norm kernel's launches and composed of eager
+              ops around it (with each variant's kernels per decode step)
   8. cold_scan the simulator's kernel against its plain version on the card,
               exactly, in float32 and float64: the cases of the JAX
               package's kernel tests, keep_warm per row, gaps within an f32
-              ulp, and the full-size case (B = T = 4096), timed beside the
-              plain version, the parallel (log-depth) version and the bound
+              ulp, cold ends before warm ends, NaN and +-inf ends, T off
+              the tile and the vector width, rows split into chunks of one
+              and of several tiles, and the full-size case (B = T = 4096),
+              timed beside the plain version, the parallel (log-depth)
+              version and the bound; after phase 10, the scorer's own
+              (B, T), timed
   9. sim      the batched simulator's torch backend at full size: the
               Fig-4 DAG over the paper's platforms, all 256 placements x 16
               seeds x 4096 requests: (a) sigma 0 equals the numpy backend
@@ -87,6 +101,8 @@ makes.
 """
 from __future__ import annotations
 
+import ctypes
+import gc
 import itertools
 import json
 import os
@@ -121,11 +137,13 @@ from repro_torch.core.shipping import PlacementCosts  # noqa: E402
 from repro_torch.dag import DagSpec, DagStep, document_dag_fig4  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.cold_scan import (  # noqa: E402
-    cold_scan, cold_scan_parallel, cold_scan_plain)
+    cold_scan, cold_scan_parallel, cold_scan_plain, cold_scan_plan)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     WGMMA_HEAD_DIMS, flash_attention, flash_attention_plain)
 from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_plain  # noqa: E402
-from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain  # noqa: E402
+from repro_torch.kernels.rmsnorm import (  # noqa: E402
+    add_rmsnorm, add_rmsnorm_plain, gated_rmsnorm, gated_rmsnorm_plain, rmsnorm,
+    rmsnorm_plain)
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain  # noqa: E402
 from repro_torch.models import griffin as GRIFFIN  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
@@ -143,7 +161,8 @@ MAX_LEN = 1024
 NEW_TOKENS = 16
 SERVE_PROMPTS = (512, 300, 512)  # federated requests: cold, then warm
 BATCH_PROMPTS = (256, 512)  # continuous batching: prompt lengths drawn here
-KERNELS = ("flash_attention", "cold_scan", "ssd_scan", "rglru_scan", "rmsnorm")
+KERNELS = ("flash_attention", "flash_attention_mma", "flash_attention_f32",
+           "cold_scan", "ssd_scan", "rglru_scan", "rmsnorm")  # the sources, one nvcc each
 SIM_SEEDS = 16  # the full-size sweep: 16 seeds x 256 placements x 4096 requests
 SIM_REQUESTS = 4096
 COLD_SCAN_FULL = (4096, 4096)  # (B, T) of one node of that sweep
@@ -176,17 +195,17 @@ def sync():
     torch.cuda.synchronize(DEV)
 
 
-def device_ms(fn, runs=20, reps=20) -> float:
+def device_ms(fn, runs=20, reps=20, sleep=100_000_000) -> float:
     """Device time of one call (ms): ``runs`` calls queued back to back
     behind a sleep kernel, so the host's launch overhead does not leave the
     card idle between them; CUDA events around the run; median over ``reps``
     such runs, after a warm-up. Inputs stay in L2, as a prefill's fresh q/k/v
-    do."""
+    do. ``sleep``: clock cycles to enqueue in (the default ~50 ms)."""
     fn()
     sync()
     times = []
     for _ in range(reps):
-        torch.cuda._sleep(100_000_000)  # ~50 ms of clock cycles to enqueue in
+        torch.cuda._sleep(sleep)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -226,8 +245,20 @@ def kernel_name(mangled: str) -> str:
         return mangled
     rest = mangled[at:]
     if rest.startswith("I"):
-        args = re.findall(r"Li(\d+)E|(13__nv_bfloat16)|(f)(?=E)", rest[:rest.find("EE") + 1])
-        name += "<" + ",".join(a or ("bf16" if b else "float") for a, b, _ in args) + ">"
+        # template arguments: ints, bools, and the element types (bfloat16
+        # as __nv_bfloat16, or as its bits, uint16_t "t")
+        tok = re.compile(r"Li(-?\d+)E|Lb([01])E|13__nv_bfloat16|([fdt])")
+        words = {"f": "float", "d": "double", "t": "bf16"}
+        args, i = [], 1
+        while i < len(rest) and rest[i] != "E":
+            m = tok.match(rest, i)
+            if not m:
+                break
+            i = m.end()
+            args.append(m.group(1) if m.group(1) is not None else
+                        ("true" if m.group(2) == "1" else "false") if m.group(2)
+                        else words.get(m.group(3), "bf16"))
+        name += "<" + ",".join(args) + ">"
     return name
 
 
@@ -260,9 +291,14 @@ def phase_build() -> dict:
             f"({build.build_seconds[name]:.1f} s; {len(per)} kernels, "
             f"registers <= {max((r for r, _ in per.values()), default=0)}, spill "
             f"stores <= {max((sp for _, sp in per.values()), default=0)} bytes)")
-        if name in ("flash_attention", "ssd_scan"):
-            for k, (r, sp) in sorted(per.items()):
+        for k, (r, sp) in sorted(per.items()):
+            if name != "rmsnorm" or sp:  # rmsnorm: 80 kernels, those that spill
                 log(f"[build]   {k}: {r} registers, {sp} bytes spill stores")
+        if name == "rmsnorm":
+            for variant, end in (("narrow", ",false>"), ("wide", ",true>")):
+                regs = [r for k, (r, _) in per.items() if k.endswith(end)]
+                log(f"[build]   rmsnorm_kernel, {variant} rows: {len(regs)} kernels, "
+                    f"{min(regs, default=0)}-{max(regs, default=0)} registers")
         for line in build.build_logs.get(name, "").splitlines():
             if "warning" in line.lower() or "Performance Loss" in line:
                 log(f"[build]   {name}: {line.strip()[:300]}")
@@ -385,7 +421,11 @@ def phase_kernels() -> dict:
     (m) recurrentgemma past its window; (o)-(w) the wgmma kernel's edges in
     bf16: T = 1, T < 64, T != S (causal and not), GQA 3 and 16 with ragged
     T, B = 2 with S no multiple of the kv tile, a window inside one kv
-    tile, and 16 and 11 q tiles a head with ragged T (long kv walks)."""
+    tile, and 16 and 11 q tiles a head with ragged T (long kv walks); (y)
+    every other head dim the Pallas kernel takes (a multiple of 16 up to
+    256) on the mma.sync kernel and in float32; (x) hubert-xlarge's
+    attention (d = 80, 16/16 heads, non-causal, a 512-frame input), timed
+    beside scaled_dot_product_attention."""
     bf16, f32 = torch.bfloat16, torch.float32
     shapes = {}
     for label, arch, seed in (("(a) main path", "qwen3-1.7b", 1),
@@ -419,6 +459,18 @@ def phase_kernels() -> dict:
              ("(u) window inside a kv tile", 1, 256, 256, 8, 2, 128, bf16, True, 20, 23),
              ("(v) long kv walks", 1, 1000, 1000, 2, 1, 128, bf16, True, None, 24),
              ("(w) long kv walks, d=64", 1, 700, 700, 6, 2, 64, bf16, True, None, 25))
+    # the head dims of neither wgmma nor the served models: mma.sync in bf16
+    cases += tuple((f"(y) d={d}", 1, 300, 300, 8, 2, d, bf16, True, None, 60 + d)
+                   for d in (48, 80, 96, 112, 160, 192, 224))
+    cases += (("(y) d=144 window", 2, 200, 200, 4, 1, 144, bf16, True, 70, 61),
+              ("(y) d=176 non-causal", 1, 130, 130, 4, 4, 176, bf16, False, None, 62),
+              ("(y) d=208 T != S", 1, 100, 257, 6, 3, 208, bf16, True, None, 63),
+              ("(y) d=240", 1, 65, 65, 2, 1, 240, bf16, True, None, 64),
+              ("(y) d=48 f32", 1, 200, 200, 4, 2, 48, f32, True, None, 65),
+              ("(y) d=80 f32 non-causal", 1, 160, 160, 4, 4, 80, f32, False, None, 66),
+              ("(y) d=240 f32 window", 1, 100, 100, 2, 1, 240, f32, True, 33, 67))
+    shapes["hubert-xlarge"] = flash_case("(x) hubert-xlarge", 1, 512, 512, 16, 16, 80,
+                                         bf16, False, None, seed=26, timed=True)
     worst = 0.0
     for *args, seed in cases:
         worst = max(worst, flash_case(*args, seed=seed)["max_abs_err"])
@@ -601,51 +653,96 @@ RMSNORM_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # tests/test_kernels.
 EPS = 1e-6
 
 
-def rmsnorm_bytes(x, w) -> int:
-    """x read once, out written once, w read once."""
-    return 2 * x.numel() * x.element_size() + w.numel() * w.element_size()
+def rmsnorm_inputs(g, shape, dtype, b_dtype, w_dtype, offset=0, b_width=None):
+    """x normal in ``dtype``, h (or z) normal in ``b_dtype``, w = 0.1·normal
+    (the JAX package's kernel-test generator). ``offset`` shifts x and h one
+    element off 16-byte alignment (the scalar path); ``b_width`` makes h a
+    column slice of rows that wide, as mamba2's z is of its in_proj output."""
+    n, D = int(np.prod(shape)), shape[-1]
+    x = torch.randn(n + offset, generator=g, device=DEV).to(dtype)[offset:].view(shape)
+    if b_width is None:
+        h = torch.randn(n + offset, generator=g, device=DEV).to(b_dtype)[offset:]
+        h = h.view(shape)
+    else:
+        h = torch.randn(n // D * b_width, generator=g, device=DEV).to(b_dtype)
+        h = h.view(*shape[:-1], b_width)[..., :D]
+    w = (0.1 * torch.randn(D, generator=g, device=DEV)).to(w_dtype)
+    return x, h, w
 
 
-def rmsnorm_case(g, name, shape, dtype, w_dtype, offset=0, timed=False):
-    """x normal, w = 0.1·normal (the JAX package's kernel-test generator);
-    ``offset`` shifts x one element off 16-byte alignment (the scalar
-    path)."""
-    n = int(np.prod(shape))
-    x = torch.randn(n + offset, generator=g, device=DEV).to(dtype)[offset:]
-    x = x.view(shape)
-    w = (0.1 * torch.randn(shape[-1], generator=g, device=DEV)).to(w_dtype)
-    got = rmsnorm(x, w, EPS)
+def rmsnorm_bound(nbytes, n) -> tuple:
+    """(bound ms, what bounds it): the bytes at the memory rate against
+    about 4 f32 operations an element (statistics and scale)."""
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_ops = 4 * n / PEAK_FLOPS[torch.float32] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+RMSNORM_CALLS = {  # prologue: (kernel, plain version)
+    "none": (lambda x, h, w: rmsnorm(x, w, EPS), lambda x, h, w: rmsnorm_plain(x, w, EPS)),
+    "add": (lambda x, h, w: add_rmsnorm(x, h, w, EPS),
+            lambda x, h, w: add_rmsnorm_plain(x, h, w, EPS)),
+    "gate": (lambda x, h, w: gated_rmsnorm(x, h, w, EPS),
+             lambda x, h, w: gated_rmsnorm_plain(x, h, w, EPS)),
+}
+
+
+def rmsnorm_case(g, name, shape, dtype, w_dtype, offset=0, timed=False, kind="none",
+                 b_dtype=None, b_width=None, sleep=100_000_000, reps=20):
+    """One call of the norm kernel with prologue ``kind`` (none: rmsnorm;
+    add: add_rmsnorm; gate: gated_rmsnorm) against its plain version. The
+    add's sum s must equal the eager add's exactly; the norm is held to
+    RMSNORM_TOL of its dtype. ``timed``: the kernel, the plain version and
+    (no prologue) F.rms_norm on the f32 input, beside the bound."""
+    x, h, w = rmsnorm_inputs(g, shape, dtype, b_dtype or dtype, w_dtype, offset, b_width)
+    kernel, plain = RMSNORM_CALLS[kind]
+    got, want = kernel(x, h, w), None
     sync()
-    want = rmsnorm_plain(x, w, EPS)
-    tol = RMSNORM_TOL[dtype]
+    want = plain(x, h, w)
+    s_ok = True
+    if kind == "add":
+        (s_got, got), (s_want, want) = got, want
+        s_ok = s_got.dtype == s_want.dtype and torch.equal(s_got, s_want)
+    tol = RMSNORM_TOL[want.dtype]
     err, ok = _close(got, want, tol)
-    ok = ok and got.dtype == dtype and got.shape == x.shape
-    log(f"[rmsnorm] {name}: x {tuple(shape)} {str(dtype)[6:]} w {str(w_dtype)[6:]}"
-        f"{' (x 16-byte misaligned)' if offset else ''}: max_abs_err {err:.3g} "
-        f"atol=rtol={tol:g} {'ok' if ok else 'FAIL'}")
+    ok = ok and s_ok and got.dtype == want.dtype and got.shape == want.shape
+    log(f"[rmsnorm] {name} [{kind}]: x {tuple(shape)} {str(dtype)[6:]}"
+        f"{'' if kind == 'none' else ' h' if kind == 'add' else ' z'}"
+        f"{'' if kind == 'none' else ' ' + str(h.dtype)[6:]}"
+        f"{f' (a column slice of {b_width})' if b_width else ''} w {str(w_dtype)[6:]}"
+        f"{' (16-byte misaligned)' if offset else ''}: max_abs_err {err:.3g} "
+        f"atol=rtol={tol:g}{'; s exact' if kind == 'add' and s_ok else ''}"
+        f"{'; s DIFFERS' if not s_ok else ''} {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError(f"rmsnorm {name} disagrees with its plain version")
+        fail(f"rmsnorm {name} [{kind}] disagrees with its plain version")
     res = {"max_abs_err": err, "tolerance": tol}
     if timed:
-        D = shape[-1]
-        xf, w1 = x.float(), 1.0 + w.float()  # the library call's operands
-        lib_err = (F.rms_norm(xf, (D,), w1, EPS).to(dtype).float()
-                   - want.float()).abs().max().item()
-        res["ms"] = device_ms(lambda: rmsnorm(x, w, EPS))
-        res["plain_ms"] = device_ms(lambda: rmsnorm_plain(x, w, EPS))
-        res["library_ms"] = device_ms(lambda: F.rms_norm(xf, (D,), w1, EPS))
-        nbytes = rmsnorm_bytes(x, w)
-        t_bytes = nbytes / HBM_BPS * 1e3
-        t_ops = 4 * x.numel() / PEAK_FLOPS[torch.float32] * 1e3  # f32 stats, scale
-        res.update(bound_ms=max(t_bytes, t_ops), bytes=nbytes, shape=list(shape),
-                   bound_by="bytes" if t_bytes >= t_ops else "operations")
+        D, n = shape[-1], x.numel()
+        res["ms"] = device_ms(lambda: kernel(x, h, w), reps=reps, sleep=sleep)
+        res["plain_ms"] = device_ms(lambda: plain(x, h, w), reps=reps, sleep=sleep)
+        res["library_ms"] = None
+        lib = ""
+        if kind == "none":
+            xf, w1 = x.float(), 1.0 + w.float()  # the library call's operands
+            res["library_ms"] = device_ms(lambda: F.rms_norm(xf, (D,), w1, EPS),
+                                          reps=reps, sleep=sleep)
+            lib = f" | F.rms_norm on the f32 input {res['library_ms'] * 1e3:.2f} us"
+        out_size = got.element_size()
+        nbytes = (x.numel() * x.element_size() + w.numel() * w.element_size()
+                  + n * out_size * (2 if kind == "add" else 1)
+                  + (0 if kind == "none" else n * h.element_size()))
+        bound, by = rmsnorm_bound(nbytes, n)
+        res.update(bound_ms=bound, bound_by=by, bytes=nbytes, shape=list(shape))
         log(f"[rmsnorm]   kernel {res['ms'] * 1e3:.2f} us | plain "
-            f"{res['plain_ms'] * 1e3:.2f} us | F.rms_norm on the f32 input "
-            f"{res['library_ms'] * 1e3:.2f} us (its max_abs_err vs plain, cast to "
-            f"{str(dtype)[6:]}: {lib_err:.3g}) | bound {res['bound_ms'] * 1e3:.3f} us "
-            f"({res['bound_by']}: {nbytes / 1e6:.2f} MB) | "
-            f"{res['bound_ms'] / res['ms'] * 100:.1f}% of the bound")
+            f"{res['plain_ms'] * 1e3:.2f} us{lib} | bound {bound * 1e3:.4f} us "
+            f"({by}: {nbytes / 1e6:.4f} MB) | {bound / res['ms'] * 100:.1f}% of the bound")
     return res
+
+
+RMSNORM_DECODE = ((1, 1024), (4, 1024), (1, 1536), (4, 1536), (1, 2048), (4, 2048),
+                  (1, 4096), (4, 4096))  # a decode step's rows: 1 or 4 slots
+QK_NORM_DECODE = (64, 128)  # qwen3's q/k norm at 4 slots: 4 x 16 heads of 128
+MAMBA2_Z_WIDTH = 4384  # mamba2-370m's in_proj output: z, x, B, C, dt
 
 
 def phase_rmsnorm() -> dict:
@@ -654,7 +751,11 @@ def phase_rmsnorm() -> dict:
     other models' widths, qwen3's qk-norm rows); mixed x/w dtypes; a row
     count that fills no whole block; rows off 16-byte alignment; and the
     main path's shape (granite-moe-3b-a800m, a 512-token prompt), timed.
-    Tolerances as tests/test_kernels.py."""
+    The add and gate prologues at every served width, with mixed and
+    misaligned operands and mamba2's z as a column slice. Timed: the
+    prefill shape with each prologue, and the decode shapes (1 and 4 rows
+    at each served width, with no prologue and with the add; mamba2's gate
+    at 2048; qwen3's 4-slot qk-norm). Tolerances as tests/test_kernels.py."""
     f32, bf16 = torch.float32, torch.bfloat16
     g = torch.Generator(device=DEV).manual_seed(40)
     worst = 0.0
@@ -671,15 +772,113 @@ def phase_rmsnorm() -> dict:
               ("(rows fill no block)", (1001, 128), bf16, bf16),
               ("(D not a vector multiple)", (5, 100), bf16, f32),
               ("(D not a vector multiple)", (6, 99), f32, f32),
-              ("(widest row)", (3, 16384), bf16, bf16)]
+              ("(widest row)", (3, 16384), bf16, bf16),
+              ("(widest row, f32)", (2, 16384), f32, f32)]
     for args in cases:
         worst = max(worst, rmsnorm_case(g, *args)["max_abs_err"])
     for args in (("(misaligned, warp path)", (9, 1000), bf16, bf16),
                  ("(misaligned, block path)", (3, 1536), f32, bf16)):
         worst = max(worst, rmsnorm_case(g, *args, offset=1)["max_abs_err"])
+    # the prologues: every served width, both dtypes of each operand
+    fused = [(f"(width {D})", kind, (r, D), bf16, bf16, bf16, 0, None)
+             for kind in ("add", "gate") for r, D in ((3, 1024), (4, 1536), (2, 2048),
+                                                       (1, 4096), (1, 128))]
+    fused += [("(f32 stream, bf16 h)", "add", (5, 2048), f32, bf16, bf16, 0, None),
+              ("(bf16 stream, f32 h)", "add", (3, 4096), bf16, f32, f32, 0, None),
+              ("(f32, f32)", "add", (2, 77, 1536), f32, f32, f32, 0, None),
+              ("(bf16 y, f32 z)", "gate", (4, 2048), bf16, f32, bf16, 0, None),
+              ("(f32 y, bf16 z)", "gate", (4, 2048), f32, bf16, f32, 0, None),
+              ("(f32, f32)", "gate", (3, 1024), f32, f32, f32, 0, None),
+              ("(mamba2 prefill, z sliced)", "gate", (1, 300, 2048), bf16, bf16, bf16, 0,
+               MAMBA2_Z_WIDTH),
+              ("(z sliced, no vector stride)", "gate", (7, 2048), bf16, bf16, bf16, 0,
+               2051),
+              ("(misaligned)", "add", (9, 1000), bf16, bf16, bf16, 1, None),
+              ("(misaligned)", "gate", (3, 1536), f32, bf16, bf16, 1, None),
+              ("(D not a vector multiple)", "add", (5, 100), bf16, f32, f32, 0, None),
+              ("(widest row)", "add", (2, 16384), bf16, bf16, bf16, 0, None),
+              ("(widest row, f32)", "gate", (2, 16384), f32, f32, f32, 0, None),
+              ("(rows fill no block)", "add", (1001, 128), bf16, bf16, bf16, 0, None)]
+    for name, kind, shape, dt, b_dt, w_dt, off, width in fused:
+        worst = max(worst, rmsnorm_case(g, name, shape, dt, w_dt, off, kind=kind,
+                                        b_dtype=b_dt, b_width=width)["max_abs_err"])
     main = rmsnorm_case(g, "(a) main path", (512, 1536), bf16, bf16, timed=True)
-    main["max_abs_err"] = max(worst, main["max_abs_err"])
+    main["prologues"] = {
+        "add": rmsnorm_case(g, "(a) main path", (512, 1536), bf16, bf16, timed=True,
+                            kind="add"),
+        "gate": rmsnorm_case(g, "(mamba2 prefill)", (512, 2048), bf16, bf16,
+                             timed=True, kind="gate", b_width=MAMBA2_Z_WIDTH)}
+    decode = {}
+    short = dict(timed=True, sleep=20_000_000, reps=10)  # a few us a call
+    for rows, D in RMSNORM_DECODE:
+        for kind in ("none", "add"):
+            decode[f"{kind} {rows}x{D}"] = rmsnorm_case(g, "(decode)", (rows, D), bf16,
+                                                        bf16, kind=kind, **short)
+    for rows in (1, 4):
+        decode[f"gate {rows}x2048"] = rmsnorm_case(
+            g, "(mamba2 decode)", (rows, 2048), bf16, bf16, kind="gate",
+            b_width=MAMBA2_Z_WIDTH, **short)
+    decode["none 64x128"] = rmsnorm_case(g, "(qwen3 qk-norm decode)", QK_NORM_DECODE,
+                                         bf16, bf16, **short)
+    main["decode"] = decode
+    main["max_abs_err"] = max(
+        [worst, main["max_abs_err"]] + [r["max_abs_err"] for r in decode.values()]
+        + [r["max_abs_err"] for r in main["prologues"].values()])
     return main
+
+
+RMSNORM_SWEEP = (  # (name, prologue, shape, z's row width)
+    ("granite prefill", "none", (512, 1536), None),
+    ("granite prefill", "add", (512, 1536), None),
+    ("qwen3 prefill", "none", (512, 2048), None),
+    ("mamba2 prefill", "none", (512, 1024), None),
+    ("mamba2 prefill", "gate", (512, 2048), MAMBA2_Z_WIDTH),
+    ("qwen3 qk-norm prefill", "none", (8192, 128), None),
+    ("decode", "add", (1, 1024), None),
+    ("decode", "add", (1, 2048), None),
+    ("decode", "add", (1, 4096), None),
+    ("decode", "add", (4, 2048), None),
+    ("mamba2 decode", "gate", (1, 2048), MAMBA2_Z_WIDTH),
+    ("qwen3 qk-norm decode", "none", (64, 128), None))
+
+
+def phase_rmsnorm_sweep() -> dict:
+    """A bring-up diagnostic, not run by default: the norm kernel's time at
+    the served shapes under each launch plan (units a thread x threads a
+    block where rows are many), beside the launch floor (an empty kernel,
+    torch.cuda._sleep(0), back to back)."""
+    bf16 = torch.bfloat16
+    g = torch.Generator(device=DEV).manual_seed(41)
+    lib = build.load("rmsnorm")
+    lib.rmsnorm_set_plan.argtypes = [ctypes.c_int, ctypes.c_int]
+    floor = device_ms(lambda: torch.cuda._sleep(0), sleep=20_000_000, reps=10)
+    log(f"[rmsnorm sweep] launch floor (an empty kernel) {floor * 1e3:.2f} us")
+    res = {"floor_ms": floor}
+    for name, kind, shape, width in RMSNORM_SWEEP:
+        x, h, w = rmsnorm_inputs(g, shape, bf16, bf16, bf16, b_width=width)
+        kernel, plain = RMSNORM_CALLS[kind]
+        row = {}
+        for per, block in itertools.product((1, 2, 4), (128, 256, 512)):
+            lib.rmsnorm_set_plan(per, block)
+            try:
+                got = kernel(x, h, w)
+                got = got[1] if kind == "add" else got
+                want = plain(x, h, w)
+                want = want[1] if kind == "add" else want
+                err, ok = _close(got, want, RMSNORM_TOL[bf16])
+                if not ok:
+                    fail(f"rmsnorm sweep {name} [{kind}] per={per} block={block}: "
+                         f"max_abs_err {err}")
+                row[f"{per}x{block}"] = device_ms(lambda: kernel(x, h, w),
+                                                  sleep=20_000_000, reps=10)
+            finally:
+                lib.rmsnorm_set_plan(0, 0)
+        best = min(row, key=row.get)
+        log(f"[rmsnorm sweep] {name} [{kind}] {shape}: "
+            + " ".join(f"{k} {v * 1e3:.2f}" for k, v in row.items())
+            + f" us; best {best}")
+        res[f"{name} {kind} {shape}"] = row
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -1007,8 +1206,8 @@ def phase_checks(cfg, params, prompt):
 
 def _profiled(fn):
     """(wall s, {kernel name: device s}, [(device s, calls, op, input
-    shapes)] of the ops that launched the kernels) of ``fn`` under
-    torch.profiler."""
+    shapes)] of the ops that launched the kernels, device kernels launched)
+    of ``fn`` under torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -1018,13 +1217,15 @@ def _profiled(fn):
         sync()
         wall = time.perf_counter() - t0
     kernels: dict = {}
+    n_kernels = 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             kernels[e.name] = kernels.get(e.name, 0.0) + e.time_range.elapsed_us() * 1e-6
+            n_kernels += "memcpy" not in e.name.lower() and "memset" not in e.name.lower()
     ops = sorted(((a.self_device_time_total * 1e-6, a.count, a.key, str(a.input_shapes))
                   for a in prof.key_averages(group_by_input_shape=True)
                   if a.self_device_time_total > 0), reverse=True)
-    return wall, kernels, ops
+    return wall, kernels, ops, n_kernels
 
 
 PORT_KERNEL = re.compile(r"flash_fwd|ssd_cb|ssd_scan_kernel|"
@@ -1046,14 +1247,16 @@ def phase_profile(cfg, params, prompt):
             M.decode_step(cfg, params, tok, caches, len(prompt) + 1 + i)
 
     out = {}
-    for name, fn in (("prefill", lambda: M.prefill(cfg, params, {"tokens": tokens})),
-                     ("decode x8", decode8)):
-        wall, kernels, ops = _profiled(fn)
+    for name, fn, passes in (
+            ("prefill", lambda: M.prefill(cfg, params, {"tokens": tokens}), 1),
+            ("decode x8", decode8, 8)):
+        wall, kernels, ops, n_kernels = _profiled(fn)
         busy = sum(kernels.values())
         top = sorted(kernels.items(), key=lambda kv: -kv[1])[:4]
         log(f"[profile] {name} (prompt {len(prompt)}): wall {wall * 1e3:.2f} ms, "
             f"device busy {busy * 1e3:.2f} ms ({100 * busy / wall:.1f}%), "
-            f"{len(kernels)} kernel names")
+            f"{len(kernels)} kernel names, {n_kernels / passes:g} device kernels "
+            f"a {'prefill' if passes == 1 else 'decode step'}")
         if not kernels:
             log("[profile]   device time not measured: the profiler recorded no kernels")
         for kname, ks in top:
@@ -1066,6 +1269,7 @@ def phase_profile(cfg, params, prompt):
             log(f"[profile]   port kernel {ks * 1e3:8.3f} ms "
                 f"({100 * ks / busy if busy else 0:.1f}%) {kname[:90]}")
         out[name] = {"wall_s": wall, "device_busy_s": busy,
+                     "kernels_per_pass": n_kernels / passes,
                      "port_kernels": {k[:90]: v for k, v in port.items()},
                      "top": [[k[:90], s] for k, s in top],
                      "top_ops": [[op, shapes[:100], calls, ds]
@@ -1073,49 +1277,142 @@ def phase_profile(cfg, params, prompt):
     return out
 
 
-NORM_AB_TURNS = ("kernel", "plain", "plain", "kernel") * 3
+NORM_AB_TURNS = ("kernel", "plain", "plain", "kernel") * 6
+
+
+def ab_turn(cfg, params, tokens, caches, tok, n):
+    """One turn of an in-process A/B: (prefill wall, decode-step wall) of a
+    warm prefill and NORM_AB_DECODE decode steps from position n, each ended
+    by a synchronise, after a garbage collection."""
+    def run():
+        gc.collect()
+        t0 = time.perf_counter()
+        M.prefill(cfg, params, {"tokens": tokens})
+        sync()
+        t1 = time.perf_counter()
+        for i in range(NORM_AB_DECODE):
+            M.decode_step(cfg, params, tok, caches, n + i)
+        sync()
+        return t1 - t0, (time.perf_counter() - t1) / NORM_AB_DECODE
+    return run
+
+
+def ab_summary(walls) -> dict:
+    """Medians and minima of each variant's turns, and the turns."""
+    return {name: {"prefill_s": statistics.median(w[0] for w in ws),
+                   "decode_step_s": statistics.median(w[1] for w in ws),
+                   "prefill_min_s": min(w[0] for w in ws),
+                   "decode_step_min_s": min(w[1] for w in ws),
+                   "turns": [list(w) for w in ws]}
+            for name, ws in walls.items()}
 NORM_AB_DECODE = 4
 
 
 def phase_norm_ab(cfg, params, prompt) -> dict:
     """The rmsnorm kernel end to end: one warm prefill and NORM_AB_DECODE
     decode steps (host clock, each ended by a synchronise) with every norm
-    through the kernel and, everything else equal, through the plain
-    version, in turns (kernel, plain, plain, kernel) x 3; medians."""
+    through the kernel (with its prologues) and, everything else equal,
+    through the plain versions, in turns (kernel, plain, plain, kernel) x 6
+    (ab_turn); medians and minima."""
     tokens = torch.as_tensor(prompt, device=DEV)[None]
     _, caches = M.prefill(cfg, params, {"tokens": tokens})
     caches = pad_cache(caches, MAX_LEN, len(prompt), cfg=cfg)
     tok = torch.ones((1, 1), dtype=torch.int32, device=DEV)
     sync()
 
-    def run():
-        t0 = time.perf_counter()
-        M.prefill(cfg, params, {"tokens": tokens})
-        sync()
-        t1 = time.perf_counter()
-        for i in range(NORM_AB_DECODE):
-            M.decode_step(cfg, params, tok, caches, len(prompt) + i)
-        sync()
-        return t1 - t0, (time.perf_counter() - t1) / NORM_AB_DECODE
-
-    kernel = L.rmsnorm_kernel
+    run = ab_turn(cfg, params, tokens, caches, tok, len(prompt))
+    names = ("rmsnorm_kernel", "add_rmsnorm_kernel", "gated_rmsnorm_kernel")
+    kernels = [getattr(L, n) for n in names]
+    plain = (rmsnorm_plain, add_rmsnorm_plain, gated_rmsnorm_plain)
     walls = {"kernel": [], "plain": []}
     for turn in NORM_AB_TURNS:
-        L.rmsnorm_kernel = kernel if turn == "kernel" else rmsnorm_plain
+        for n, fn in zip(names, kernels if turn == "kernel" else plain):
+            setattr(L, n, fn)
         try:
             walls[turn].append(run())
         finally:
-            L.rmsnorm_kernel = kernel
-    res = {name: {"prefill_s": statistics.median(w[0] for w in ws),
-                  "decode_step_s": statistics.median(w[1] for w in ws)}
-           for name, ws in walls.items()}
+            for n, fn in zip(names, kernels):
+                setattr(L, n, fn)
+    res = ab_summary(walls)
     k, p = res["kernel"], res["plain"]
     log(f"[norm a/b] prompt {len(prompt)}, medians of {len(walls['kernel'])} turns "
         f"each: prefill {k['prefill_s'] * 1e3:.2f} ms with the rmsnorm kernel vs "
         f"{p['prefill_s'] * 1e3:.2f} ms with the plain norms "
         f"({(k['prefill_s'] / p['prefill_s'] - 1) * 100:+.1f}%); decode step "
         f"{k['decode_step_s'] * 1e3:.2f} vs {p['decode_step_s'] * 1e3:.2f} ms "
-        f"({(k['decode_step_s'] / p['decode_step_s'] - 1) * 100:+.1f}%)")
+        f"({(k['decode_step_s'] / p['decode_step_s'] - 1) * 100:+.1f}%); minima "
+        f"{k['prefill_min_s'] * 1e3:.2f} vs {p['prefill_min_s'] * 1e3:.2f} ms, "
+        f"{k['decode_step_min_s'] * 1e3:.2f} vs {p['decode_step_min_s'] * 1e3:.2f} ms")
+    return res
+
+
+def _unfused_add(x, h, w, eps=1e-6):
+    s = x + h
+    return s, L.rmsnorm_kernel(s, w, eps)
+
+
+def _unfused_gate(y, z, w, eps=1e-6):
+    return L.rmsnorm_kernel(y * F.silu(z), w, eps)
+
+
+class unfused_prologues:
+    """While active, the kernel path's residual adds and mamba2's gate are
+    eager ops around a no-prologue norm launch (what the kernel path was
+    before the norm kernel took them), everything else equal."""
+
+    def __enter__(self):
+        self._saved = (L.add_rmsnorm_kernel, L.gated_rmsnorm_kernel)
+        L.add_rmsnorm_kernel, L.gated_rmsnorm_kernel = _unfused_add, _unfused_gate
+        return self
+
+    def __exit__(self, *exc):
+        L.add_rmsnorm_kernel, L.gated_rmsnorm_kernel = self._saved
+        return False
+
+
+PROLOGUE_AB_TURNS = ("fused", "unfused", "unfused", "fused") * 6
+
+
+def phase_prologue_ab(cfg, params, prompt) -> dict:
+    """The norm kernel's prologues end to end: one warm prefill and
+    NORM_AB_DECODE decode steps (host clock, each ended by a synchronise)
+    with the residual adds and mamba2's gate fused into the norm launches
+    and, everything else equal, as eager ops around them (unfused_prologues),
+    in turns (fused, unfused, unfused, fused) x 6 (ab_turn); medians and
+    minima. Then each
+    variant's device kernels a decode step, from the profiler."""
+    tokens = torch.as_tensor(prompt, device=DEV)[None]
+    _, caches = M.prefill(cfg, params, {"tokens": tokens})
+    caches = pad_cache(caches, MAX_LEN, len(prompt), cfg=cfg)
+    tok = torch.ones((1, 1), dtype=torch.int32, device=DEV)
+    sync()
+
+    run = ab_turn(cfg, params, tokens, caches, tok, len(prompt))
+
+    def decode_kernels():
+        return _profiled(lambda: M.decode_step(cfg, params, tok, caches, len(prompt)))[3]
+
+    walls = {"fused": [], "unfused": []}
+    for turn in PROLOGUE_AB_TURNS:
+        if turn == "fused":
+            walls[turn].append(run())
+        else:
+            with unfused_prologues():
+                walls[turn].append(run())
+    res = ab_summary(walls)
+    res["fused"]["decode_kernels"] = decode_kernels()
+    with unfused_prologues():
+        res["unfused"]["decode_kernels"] = decode_kernels()
+    f, u = res["fused"], res["unfused"]
+    log(f"[prologue a/b] prompt {len(prompt)}, medians of {len(walls['fused'])} turns "
+        f"each: prefill {f['prefill_s'] * 1e3:.2f} ms with the prologues fused vs "
+        f"{u['prefill_s'] * 1e3:.2f} ms unfused "
+        f"({(f['prefill_s'] / u['prefill_s'] - 1) * 100:+.1f}%); decode step "
+        f"{f['decode_step_s'] * 1e3:.2f} vs {u['decode_step_s'] * 1e3:.2f} ms "
+        f"({(f['decode_step_s'] / u['decode_step_s'] - 1) * 100:+.1f}%); minima "
+        f"{f['prefill_min_s'] * 1e3:.2f} vs {u['prefill_min_s'] * 1e3:.2f} ms, "
+        f"{f['decode_step_min_s'] * 1e3:.2f} vs {u['decode_step_min_s'] * 1e3:.2f} ms; device "
+        f"kernels a decode step {f['decode_kernels']} vs {u['decode_kernels']}")
     return res
 
 
@@ -1152,13 +1449,35 @@ def scan_check(name, t0, warm, cold, kw, dtype):
     bad = int(diff.sum())
     err = int(diff.max()) if diff.numel() else 0
     cold_share = float(want.float().mean())
-    log(f"[cold_scan] {name} {str(dtype)[6:]}: B={warm.shape[0]} T={warm.shape[1]} "
-        f"cold share {cold_share:.3f} mismatches {bad} max_abs_err {err} "
+    B, T = warm.shape
+    nch, tpc = cold_scan_plan(B, T, torch.cuda.get_device_properties(DEV).multi_processor_count)
+    log(f"[cold_scan] {name} {str(dtype)[6:]}: B={B} T={T} ({nch} chunks of {tpc} "
+        f"tiles a row) cold share {cold_share:.3f} mismatches {bad} max_abs_err {err} "
         f"{'ok' if err <= COLD_SCAN_TOL else 'FAIL'}")
     if err > COLD_SCAN_TOL:
-        raise AssertionError(f"cold_scan {name} {dtype}: {bad} mask entries "
-                             f"differ from the plain version")
+        fail(f"cold_scan {name} {dtype}: {bad} mask entries differ from the plain "
+             f"version")
     return args, kwd, err
+
+
+def odd_ends(g, B, T):
+    """Ends the simulator does not make but the contract covers: cold ends
+    before warm ends on half the rows, NaN and +-inf ends, an infinite and
+    a NaN arrival time; keep_warm straddling the gaps, inf on one row."""
+    t0, warm, cold, _ = cold_case(g, B, T, 1.0, None)
+    early = torch.rand(B, 1, generator=g, device=DEV) < 0.5
+    cold = torch.where(early, warm - 0.3 * torch.rand(B, T, generator=g, device=DEV,
+                                                      dtype=torch.float64), cold)
+    for ends, vals in ((warm, (float("nan"), float("inf"), -float("inf"))),
+                       (cold, (float("nan"), float("inf"), -float("inf")))):
+        for v in vals:
+            ends[torch.rand(B, T, generator=g, device=DEV) < 0.01] = v
+    t0 = t0.clone()
+    t0[T // 3] = float("inf")
+    t0[T // 2] = float("nan")
+    kw = torch.linspace(0.5, 1.2, B, device=DEV, dtype=torch.float64)
+    kw[-1] = float("inf")
+    return t0, warm, cold, kw
 
 
 def phase_cold_scan() -> dict:
@@ -1175,6 +1494,23 @@ def phase_cold_scan() -> dict:
     kws = torch.linspace(0.5, 1.5, 64, device=DEV, dtype=torch.float64)
     kws[::7] = float("inf")
     cases.append(("keep_warm per row", t0, warm, cold, kws))
+    # rows split into chunks (one tile and several), T off the tile and off
+    # the vector width (the scalar path), T = 1
+    for B, T in ((2, 4096), (8, 5000), (200, 1000), (1000, 2000), (3, 4097), (5, 1)):
+        cases.append((f"chunks B={B} T={T}", *cold_case(g, B, T, 1.0, 0.95)))
+    for B, T in ((6, 300), (3, 4097), (64, 1024)):
+        cases.append((f"cold before warm, NaN and inf ends B={B} T={T}",
+                      *odd_ends(g, B, T)))
+    # every request from 2 on a flip, request 1 cold whatever came before:
+    # tiles and chunks carry state 1 into flip-only maps
+    for B, T in ((2, 4097), (300, 1000), (3000, 1024)):
+        t0 = 0.7 * torch.arange(T, device=DEV, dtype=torch.float64)
+        warm = (t0[None, :] + 0.02 + 0.01 * torch.rand(B, 1, generator=g, device=DEV,
+                                                       dtype=torch.float64))
+        warm[:, 0] = -1.0
+        cold = warm + 0.5
+        cold[:, 0] = -1.0
+        cases.append((f"flip-only carries B={B} T={T}", t0, warm, cold, 0.6))
     worst = 0
     for name, t0, warm, cold, kw in cases:
         for dtype in (torch.float32, torch.float64):
@@ -1321,7 +1657,7 @@ def phase_sim() -> dict:
 
     # (d) device busy share of one warm call, per dtype
     for dt in (np.float64, np.float32):
-        wall, kernels, _ = _profiled(
+        wall, kernels, _, _ = _profiled(
             lambda: sim.simulate_placements(spec, pl, dtype=dt, device=DEV))
         sweeps += 1
         busy = sum(kernels.values())
@@ -1417,12 +1753,23 @@ def adapt_stream(n, drift, scorer=None, adaptive=True, seed=11):
     return totals, swaps, ctrl_s
 
 
-def phase_adapt() -> dict:
+def phase_adapt() -> tuple:
+    """(result, the arguments of the scorer's last cold_scan call)."""
     n = ADAPT_REQUESTS
     drift = SIM.DriftSchedule([SIM.DriftEvent(n // 2, "pA", compute_scale=5.0)])
     static, _, _ = adapt_stream(n, drift, adaptive=False)
     scorer = PlacementScorer(quantile=0.9, backend="torch", device=DEV)
-    adaptive, swaps, ctrl_s = adapt_stream(n, drift, scorer=scorer)
+    calls = []
+    scan = torchsim.cold_scan
+
+    def recorded(*args):
+        calls[:] = [args]
+        return scan(*args)
+    torchsim.cold_scan = recorded
+    try:
+        adaptive, swaps, ctrl_s = adapt_stream(n, drift, scorer=scorer)
+    finally:
+        torchsim.cold_scan = scan
 
     def steady(t):
         return float(np.median(t[-(len(t) // 4):]))
@@ -1437,6 +1784,33 @@ def phase_adapt() -> dict:
         f"{recovery * 100:.1f}%); swaps {swaps}; controller wall {ctrl_s:.3f} s")
     if recovery < 0.25 or not swaps:
         raise AssertionError(f"recomposition missed the 25% bar: {res}")
+    return res, calls[0] if calls else None
+
+
+def phase_scorer_scan(args) -> dict:
+    """cold_scan at the scorer's own (B, T): its last call's arguments in
+    the recomposition phase, exact against the plain version, timed."""
+    if args is None:
+        raise AssertionError("the torch scorer made no cold_scan call")
+    t0, warm, cold, kw = args
+    B, T = warm.shape
+    got = cold_scan(*args)
+    sync()
+    if not torch.equal(got, cold_scan_plain(*args)):
+        raise AssertionError(f"cold_scan at the scorer's shape ({B}, {T}) differs "
+                             f"from the plain version")
+    ms = device_ms(lambda: cold_scan(*args), sleep=20_000_000)
+    plain_ms = device_ms(lambda: cold_scan_plain(*args), runs=2, reps=5)
+    nbytes = cold_scan_bytes(B, T, warm.dtype)
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_ops = 3 * B * T / PEAK_FLOPS[torch.float32] * 1e3
+    res = {"shape": [B, T], "dtype": str(warm.dtype)[6:], "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations", "bytes": nbytes,
+           "max_abs_err": 0, "library_ms": None}
+    log(f"[cold_scan] the scorer's shape B={B} T={T} {res['dtype']} (exact): kernel "
+        f"{ms * 1e3:.2f} us | plain {plain_ms * 1e3:.1f} us | bound "
+        f"{res['bound_ms'] * 1e3:.4f} us (bytes: {nbytes / 1e3:.1f} KB)")
     return res
 
 
@@ -1642,18 +2016,20 @@ def serve_model(arch) -> dict:
               else None)
     profile = phase_profile(cfg, params, prompts[0])
     norm_ab = phase_norm_ab(cfg, params, prompts[0])
+    prologue_ab = phase_prologue_ab(cfg, params, prompts[0])
     del params
     torch.cuda.empty_cache()
     return {"arch": arch, "requests": requests, "batching": batching,
             "profile": profile, "launches": total, "passes": passes.n,
             "per_prefill": per_prefill, "window": window, "moe": moe,
-            "norm_ab": norm_ab}
+            "norm_ab": norm_ab, "prologue_ab": prologue_ab}
 
 
 ONLY_PHASES = {"kernels": lambda: phase_kernels(), "ssd_scan": lambda: phase_ssd_scan(),
                "rglru_scan": lambda: phase_rglru_scan(),
                "rmsnorm": lambda: phase_rmsnorm(), "cold_scan": lambda: phase_cold_scan(),
-               "tile_cost": lambda: phase_tile_cost()}
+               "tile_cost": lambda: phase_tile_cost(),
+               "rmsnorm_sweep": lambda: phase_rmsnorm_sweep()}
 
 
 def main():
@@ -1695,11 +2071,12 @@ def main():
         raise AssertionError(f"{sim_launches} cold_scan launches != 4 per sweep")
     # the recomposition path: the scorer's sweeps launch the kernel
     cold_scan.launches = 0
-    adapt = phase_adapt()
+    adapt, scorer_args = phase_adapt()
     adapt_launches = cold_scan.launches
     log(f"[adapt] cold_scan launches: {adapt_launches}")
     if adapt_launches == 0:
         raise AssertionError("the torch scorer never launched cold_scan")
+    cs["scorer"] = phase_scorer_scan(scorer_args)
 
     def model_launches(name):
         return sum(m["launches"][name] for m in served)
@@ -1708,6 +2085,9 @@ def main():
     kernels = [{
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "sources": ["src/repro_torch/kernels/csrc/flash_attention.cu",
+                    "src/repro_torch/kernels/csrc/flash_attention_mma.cu",
+                    "src/repro_torch/kernels/csrc/flash_attention_f32.cu"],
         "replaces": "src/repro/kernels/flash_attention.py:88",
         "launches": model_launches("flash_attention"),
         "max_abs_err": fa["max_abs_err"],
@@ -1721,7 +2101,8 @@ def main():
             for arch, r in fa["shapes"].items()},
         "launches_by_model": {m["arch"]: m["launches"]["flash_attention"]
                               for m in served if m["launches"]["flash_attention"]},
-        "ptxas": ptxas["flash_attention"],
+        "ptxas": {**ptxas["flash_attention"], **ptxas["flash_attention_mma"],
+                  **ptxas["flash_attention_f32"]},
     }, {
         "name": "cold_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/cold_scan.cu",
@@ -1734,6 +2115,7 @@ def main():
         "library_ms": None,
         "float32": {k: cs32[k] for k in ("ms", "plain_ms", "parallel_ms",
                                          "bound_ms", "bound_by")},
+        "scorer": cs["scorer"],
     }, {
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
@@ -1763,6 +2145,12 @@ def main():
         "bound_ms": rn["bound_ms"], "bound_by": rn["bound_by"],
         "library_ms": rn["library_ms"],
         "library": "torch.nn.functional.rms_norm on the float32 input",
+        "prologues": {k: {f: r[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                             "library_ms", "shape")}
+                      for k, r in rn["prologues"].items()},
+        "decode": {k: {f: r[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                         "library_ms")}
+                   for k, r in rn["decode"].items()},
     }]
     for m in served:
         log(json.dumps({"serving": m}))

@@ -69,22 +69,26 @@ def build_all(names, build_dir=None) -> dict:
     nvcc = nvcc_path()
     build_dir.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    procs = {}
-    for n, p in todo.items():
+    failures = []
+
+    def run(n, p):
+        """One nvcc; its own wall, from the common start to its end."""
         tmp = p.with_suffix(f".tmp{os.getpid()}")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
-        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                     stderr=subprocess.STDOUT, text=True),
-                    tmp, cmd)
-    failures = []
-    for n, (proc, tmp, cmd) in procs.items():
-        out, _ = proc.communicate()
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
         if proc.returncode != 0:
-            failures.append(f"$ {' '.join(cmd)}\n{out}")
-            continue
-        os.replace(tmp, todo[n])  # atomic: readers never see half a library
+            failures.append(f"$ {' '.join(cmd)}\n{proc.stdout}")
+            return
+        os.replace(tmp, p)  # atomic: readers never see half a library
         build_seconds[n] = time.perf_counter() - t0
-        build_logs[n] = out
+        build_logs[n] = proc.stdout
+
+    threads = [threading.Thread(target=run, args=item) for item in todo.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
     if failures:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
     return paths

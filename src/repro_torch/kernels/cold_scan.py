@@ -23,10 +23,18 @@ take (a dtype other than float32/float64, mixed dtypes or devices,
 non-contiguous input). ``cold_scan.launches`` counts kernel launches (never
 plain calls).
 
+``cold_scan_words`` is the kernel's arithmetic in plain PyTorch: each
+request's mask as the select ``mask[k-1] ? cold_gap[k] : warm_gap[k]``, an
+affine map ``(a, b) = (warm_gap, warm_gap ^ cold_gap)`` over GF(2), composed
+in lanes of 4 requests, scanned across a warp of 32 lanes, carried from tile
+to tile and from chunk to chunk as ``cold_scan_plan`` splits the row.
+
 ``cold_scan_parallel`` is the torch port of the JAX package's
 ``cold_scan_parallel``: the same mask as a Hillis-Steele scan over GF(2)
-affine maps, gated on any flip bit surviving. It is a yardstick for the
-kernel, not on the simulator's path.
+affine maps, gated on any flip bit surviving. Its map ``b = warm_gap &
+~cold_gap`` equals the recurrence only where ``cold_end >= warm_end``; the
+kernel's select form makes the recurrence's own two comparisons and so
+equals it for any input. It is a yardstick, not on the simulator's path.
 """
 from __future__ import annotations
 
@@ -39,10 +47,15 @@ import torch
 from repro_torch.kernels import build
 
 _DTYPES = {torch.float32: 0, torch.float64: 1}
+LANES, PER_LANE = 32, 4  # a warp, and the consecutive requests a lane holds
+TILE = LANES * PER_LANE  # the requests a warp takes a step
+MAX_CHUNKS = 16  # warps a row, all in one block
+WARPS_PER_SM = 16  # the warps a call aims to give each SM
 
 _lib_lock = threading.Lock()
 _count_lock = threading.Lock()
 _lib = None
+_sms: dict = {}  # device index -> SM count
 
 
 def _keep_warm_rows(keep_warm, B, like):
@@ -112,16 +125,101 @@ def cold_scan_parallel(t0, warm_end, cold_end, keep_warm):
     return a
 
 
+def cold_scan_plan(B, T, sms):
+    """(chunks a row, tiles a chunk) of the kernel's launch: a row's T
+    requests in tiles of TILE, split into up to MAX_CHUNKS chunks (a power
+    of two, never more than the tiles) while B rows leave fewer than
+    WARPS_PER_SM warps an SM."""
+    ntiles = max(1, -(-T // TILE))
+    nch = 1
+    while nch < MAX_CHUNKS and nch < ntiles and B * nch < WARPS_PER_SM * sms:
+        nch *= 2
+    return nch, -(-ntiles // nch)
+
+
+def _compose(first, then):
+    """The affine map ``first`` then ``then``, each ``(a, b)`` of bool
+    tensors: ``s = a ^ (b & s_prev)``."""
+    return then[0] ^ (then[1] & first[0]), then[1] & first[1]
+
+
+def cold_scan_words(t0, warm_end, cold_end, keep_warm, n_chunks=1):
+    """The CUDA kernel's arithmetic in plain PyTorch, over chunks of
+    ``n_chunks`` a row as ``cold_scan_plan`` gives them: the (B, T) bool
+    cold mask. Request k's map is ``(warm_gap, warm_gap ^ cold_gap)``, the
+    gaps measured from request k-1's ends (from -inf at request 0, as the
+    recurrence measures); lanes compose their 4 maps, a warp scans its 32
+    lane maps in 5 doubling steps, tiles and then chunks carry the state.
+    Past T every map is the identity (0, 1)."""
+    B, T = warm_end.shape
+    if B == 0 or T == 0:
+        return torch.zeros((B, T), dtype=torch.bool, device=warm_end.device)
+    kw = _keep_warm_rows(keep_warm, B, warm_end)[:, None]
+    ninf = torch.full((B, 1), -math.inf, dtype=warm_end.dtype, device=warm_end.device)
+    prev_w = torch.cat([ninf, warm_end[:, :-1]], dim=1)
+    prev_c = torch.cat([ninf, cold_end[:, :-1]], dim=1)
+    wg = (t0[None, :] - prev_w) > kw
+    cg = (t0[None, :] - prev_c) > kw
+    tpc = -(-max(1, -(-T // TILE)) // n_chunks)
+    pad = n_chunks * tpc * TILE - T
+    a = torch.nn.functional.pad(wg, (0, pad), value=False)
+    b = torch.nn.functional.pad(wg ^ cg, (0, pad), value=True)
+    # (B, chunk, tile, lane, request)
+    a = a.view(B, n_chunks, tpc, LANES, PER_LANE)
+    b = b.view(B, n_chunks, tpc, LANES, PER_LANE)
+    lane = (torch.zeros_like(a[..., 0]), torch.ones_like(b[..., 0]))
+    for j in range(PER_LANE):
+        lane = _compose(lane, (a[..., j], b[..., j]))
+    incl = lane  # the warp's inclusive scan of lane maps
+    off = 1
+    while off < LANES:
+        prev = tuple(torch.nn.functional.pad(m[..., :-off], (off, 0), value=v)
+                     for m, v in zip(incl, (False, True)))
+        incl = _compose(prev, incl)
+        off *= 2
+    excl = tuple(torch.nn.functional.pad(m[..., :-1], (1, 0), value=v)
+                 for m, v in zip(incl, (False, True)))
+    tile_map = (incl[0][..., -1], incl[1][..., -1])  # (B, chunk, tile)
+    chunk_map = (torch.zeros_like(tile_map[0][..., 0]),
+                 torch.ones_like(tile_map[1][..., 0]))
+    for t in range(tpc):
+        chunk_map = _compose(chunk_map, (tile_map[0][..., t], tile_map[1][..., t]))
+    # the state entering each chunk: the chunks before it folded from 0
+    s = torch.zeros((B,), dtype=torch.bool, device=a.device)
+    enter = []
+    for c in range(n_chunks):
+        enter.append(s)
+        s = chunk_map[0][:, c] ^ (chunk_map[1][:, c] & s)
+    s = torch.stack(enter, dim=1)  # (B, chunk)
+    out = torch.empty_like(a)
+    for t in range(tpc):
+        st = excl[0][:, :, t] ^ (excl[1][:, :, t] & s[..., None])  # (B, chunk, lane)
+        for j in range(PER_LANE):
+            st = a[:, :, t, :, j] ^ (b[:, :, t, :, j] & st)
+            out[:, :, t, :, j] = st
+        s = tile_map[0][:, :, t] ^ (tile_map[1][:, :, t] & s)
+    return out.reshape(B, -1)[:, :T].contiguous()
+
+
 def _kernel_lib():
     global _lib
     with _lib_lock:
         if _lib is None:
             lib = build.load("cold_scan")
             fn = lib.cold_scan_fwd
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                           + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
             _lib = lib
         return _lib
+
+
+def _sm_count(device):
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    n = _sms.get(idx)
+    if n is None:
+        n = _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return n
 
 
 def _check(t0, warm_end, cold_end):
@@ -152,19 +250,27 @@ def cold_scan(t0, warm_end, cold_end, keep_warm):
         return cold_scan_plain(t0, warm_end, cold_end, keep_warm)
     if warm_end.device.type != "cuda":
         raise ValueError(f"cold_scan runs on cuda or cpu, got {warm_end.device}")
+    return _launch(t0, warm_end, cold_end, keep_warm)
+
+
+def _launch(t0, warm_end, cold_end, keep_warm):
+    """The kernel on the inputs' device: checks, allocates, launches over
+    ``cold_scan_plan``'s split, counts; raises if the build or the launch
+    fails."""
     _check(t0, warm_end, cold_end)
     B, T = warm_end.shape
     kw = _keep_warm_rows(keep_warm, B, warm_end)
     mask = torch.empty((B, T), dtype=torch.bool, device=warm_end.device)
     if B == 0 or T == 0:
         return mask
+    nch, tpc = cold_scan_plan(B, T, _sm_count(warm_end.device))
     lib = _kernel_lib()
     with torch.cuda.device(warm_end.device):
         stream = torch.cuda.current_stream(warm_end.device).cuda_stream
         err = lib.cold_scan_fwd(
             t0.data_ptr(), warm_end.data_ptr(), cold_end.data_ptr(),
             kw.data_ptr(), mask.data_ptr(), B, T, _DTYPES[warm_end.dtype],
-            stream)
+            nch, tpc, stream)
     if err != 0:
         raise RuntimeError(f"cold_scan kernel launch failed: CUDA error {err} "
                            f"(B={B}, T={T}, {warm_end.dtype})")

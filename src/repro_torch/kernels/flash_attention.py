@@ -7,8 +7,10 @@ positions aligned at 0, causal and/or sliding-window masks, and GQA (query
 head h reads kv head h // (H/K)). Layout is the JAX package's: q
 ``(B, T, H, d)``, k/v ``(B, S, K, d)``, out ``(B, T, H, d)`` in q's dtype.
 bfloat16 runs its products on the tensor cores (``wgmma`` with TMA-fed K/V
-for d in {64, 128, 256}, ``mma.sync`` for d in {16, 32}; f32 accumulate);
-float32 keeps them in f32 on the CUDA cores.
+for d in {64, 128, 256}, ``csrc/flash_attention.cu``; ``mma.sync`` for every
+other multiple of 16 up to 256, ``csrc/flash_attention_mma.cu``; f32
+accumulate); float32 keeps them in f32 on the CUDA cores
+(``csrc/flash_attention_f32.cu``, every such d).
 
 A block of the wgmma kernel is one q tile (64 rows of one head) against
 the kv tiles it reaches, longest q tiles first. ``plan_tiles`` lists them
@@ -17,8 +19,8 @@ arithmetic in plain PyTorch (the CPU tests hold both to the reference).
 
 ``flash_attention`` takes the plain version only for CPU tensors. For CUDA
 tensors it always launches the kernel, or raises on what the kernel does
-not take (dtype other than float32/bfloat16, head_dim outside
-{16, 32, 64, 128, 256}, non-contiguous or unaligned input). Unlike the TPU
+not take (dtype other than float32/bfloat16, a head_dim that is not a
+multiple of 16 up to 256, non-contiguous or unaligned input). Unlike the TPU
 kernel it takes any T and S: ragged tiles are masked inside the kernel.
 
 ``flash_attention.launches`` counts kernel launches (never plain calls).
@@ -33,15 +35,15 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = tuple(range(16, 257, 16))  # every d the kernels take
 WGMMA_HEAD_DIMS = (64, 128, 256)  # bf16 head dims of the wgmma kernel
 TILE = 64  # query rows per q tile, keys per kv tile
 GRID_MAX = 65535  # the kernels' batch and q-tile grid axes
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
 
 _lib_lock = threading.Lock()
 _count_lock = threading.Lock()
-_lib = None
+_libs: dict = {}  # source name -> ctypes library
 
 
 def flash_attention_plain(q, k, v, *, causal=True, window=None, scale=None):
@@ -131,17 +133,27 @@ def flash_attention_tiles(q, k, v, *, causal=True, window=None, scale=None):
     return out
 
 
-def _kernel_lib():
-    global _lib
+def _kernel_lib(name):
+    """The library of ``csrc/<name>.cu`` (its entry point ``<name>_fwd``):
+    ``flash_attention`` (wgmma), ``flash_attention_mma`` (mma.sync) or
+    ``flash_attention_f32``."""
     with _lib_lock:
-        if _lib is None:
-            lib = build.load("flash_attention")
-            fn = lib.flash_attention_fwd
+        lib = _libs.get(name)
+        if lib is None:
+            lib = build.load(name)
+            fn = getattr(lib, f"{name}_fwd")
             fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
-                           + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                           + [ctypes.c_float, ctypes.c_void_p])
             fn.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+            _libs[name] = lib
+        return lib
+
+
+def kernel_source(dtype, d):
+    """The source whose kernel takes q/k/v of ``dtype`` at head dim d."""
+    if dtype == torch.float32:
+        return "flash_attention_f32"
+    return "flash_attention" if d in WGMMA_HEAD_DIMS else "flash_attention_mma"
 
 
 def _check(q, k, v, window):
@@ -160,7 +172,7 @@ def _check(q, k, v, window):
         raise ValueError(f"incompatible shapes q {tuple(q.shape)}, "
                          f"k/v {tuple(k.shape)} (need H % K == 0)")
     if d not in HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
+        raise ValueError(f"head_dim {d} is not a multiple of 16 up to 256")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention takes contiguous q, k, v")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
@@ -186,15 +198,14 @@ def flash_attention(q, k, v, *, causal=True, window=None, scale=None):
     B, T, H, d = q.shape
     S, K = k.shape[1], k.shape[2]
     scale = scale if scale is not None else d ** -0.5
-    lib = _kernel_lib()
     out = torch.empty_like(q)
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, T, S,
+            H, K, d, int(bool(causal)), -1 if window is None else int(window),
+            float(scale)]
+    name = kernel_source(q.dtype, d)
+    fn = getattr(_kernel_lib(name), f"{name}_fwd")
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, T, S, H, K, d, int(bool(causal)),
-            -1 if window is None else int(window), float(scale),
-            _DTYPES[q.dtype], stream)
+        err = fn(*args, torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error "
                            f"{err} (q {tuple(q.shape)}, k {tuple(k.shape)}, "

@@ -13,7 +13,10 @@ masks at -1e30. Prefill attention with ``cfg.use_pallas`` goes to the
 hand-written kernel (``repro_torch.kernels.flash_attention``); decode keeps
 ``_sdpa``, as the JAX package does. With ``cfg.use_pallas`` every norm runs
 the hand-written rmsnorm kernel (``repro_torch.kernels.rmsnorm``), where the
-JAX package's ``layers.rmsnorm`` stays jnp: the same function.
+JAX package's ``layers.rmsnorm`` stays jnp: the same function. On that path
+``add_rmsnorm`` and ``gated_rmsnorm`` take the residual add or the SiLU gate
+before a norm into the same launch; the plain path composes them of eager
+ops, which is what the kernel's rounding follows.
 """
 from __future__ import annotations
 
@@ -25,6 +28,8 @@ import torch.nn.functional as F
 
 from repro_torch.dist.sharding import current_sharding, shard
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.rmsnorm import add_rmsnorm as add_rmsnorm_kernel
+from repro_torch.kernels.rmsnorm import gated_rmsnorm as gated_rmsnorm_kernel
 from repro_torch.kernels.rmsnorm import rmsnorm as rmsnorm_kernel
 from repro_torch.kernels.rmsnorm import rmsnorm_plain
 from repro_torch.models.params import ParamDef
@@ -72,6 +77,23 @@ def rmsnorm(x, w, eps=1e-6, use_kernel=False):
     if use_kernel:
         return rmsnorm_kernel(x, w, eps)
     return rmsnorm_plain(x, w, eps)
+
+
+def add_rmsnorm(x, h, w, eps=1e-6, use_kernel=False):
+    """``(x + h, rmsnorm(x + h, w))``: a residual add and the norm after it;
+    ``use_kernel``: one launch of the kernel."""
+    if use_kernel:
+        return add_rmsnorm_kernel(x, h, w, eps)
+    s = x + h
+    return s, rmsnorm_plain(s, w, eps)
+
+
+def gated_rmsnorm(y, z, w, eps=1e-6, use_kernel=False):
+    """``rmsnorm(y * silu(z), w)``; ``use_kernel``: one launch of the
+    kernel."""
+    if use_kernel:
+        return gated_rmsnorm_kernel(y, z, w, eps)
+    return rmsnorm_plain(y * F.silu(z), w, eps)
 
 
 def rope(x, positions, theta):

@@ -46,8 +46,8 @@ def prefill(cfg, params, batch):
     T = x.shape[1]
     positions = torch.arange(T, dtype=torch.int32, device=x.device)
     mode = "prefill" if cfg.supports_decode else "train"  # encoders: no cache
-    x, caches, _ = tfm.run_blocks(cfg, p, x, positions, mode)
-    x = tfm.rmsnorm(x, p["final_norm"], use_kernel=cfg.use_pallas)
+    x, delta, caches, _ = tfm.run_blocks(cfg, p, x, positions, mode)
+    _, x = tfm.add_norm(cfg, x, delta, p["final_norm"])
     logits = tfm.unembed(cfg, p, x[:, -1:, :])
     return logits[:, 0, :].float(), (caches or {})
 
@@ -64,9 +64,9 @@ def decode_step(cfg, params, token, caches, cur_index):
     x = tfm.embed_inputs(cfg, p, {"tokens": token})
     positions = torch.full((1,), int(cur_index), dtype=torch.int32,
                            device=x.device)
-    x, caches, _ = tfm.run_blocks(cfg, p, x, positions, "decode", caches,
-                                  cur_index)
-    x = tfm.rmsnorm(x, p["final_norm"], use_kernel=cfg.use_pallas)
+    x, delta, caches, _ = tfm.run_blocks(cfg, p, x, positions, "decode",
+                                         caches, cur_index)
+    _, x = tfm.add_norm(cfg, x, delta, p["final_norm"])
     logits = tfm.unembed(cfg, p, x)
     return logits[:, 0, :].float(), caches
 

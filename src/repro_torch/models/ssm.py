@@ -24,7 +24,7 @@ from repro_torch.dist.sharding import shard
 # chunked SSD oracle is the kernel's plain version
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.kernels.ssd_scan import ssd_scan_plain as ssd_chunked
-from repro_torch.models.layers import promote, rmsnorm
+from repro_torch.models.layers import gated_rmsnorm, promote, rmsnorm
 from repro_torch.models.params import ParamDef
 
 
@@ -81,15 +81,18 @@ def ssd_step(x_t, dt_t, A_log, B_t, C_t, state):
     return y.to(x_t.dtype), new.to(state.dtype)
 
 
-def ssd_block(cfg, p, x, mode, cache=None, use_pallas=False):
+def ssd_block(cfg, p, x, mode, cache=None, use_pallas=False, u=None):
     """Full mamba2 block (norm -> in_proj -> conv -> SSD -> gated norm -> out).
 
     cache (decode): {"conv": (B,cw-1,conv_ch), "state": (B,H,P,N)}, written
-    in place. Returns (out, new_cache); prefill also builds the cache.
+    in place. ``u``: the input norm ``rmsnorm(x, p["norm"])`` where the
+    caller has taken it (with the residual add before it, in one launch).
+    Returns (out, new_cache); prefill also builds the cache.
     """
     d_inner, N, H, Pp = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     Bb, T, D = x.shape
-    u = rmsnorm(x, p["norm"], use_kernel=use_pallas)
+    if u is None:
+        u = rmsnorm(x, p["norm"], use_kernel=use_pallas)
     zxbcdt = torch.einsum("btd,de->bte", *promote(u, p["in_proj"]))
     z = zxbcdt[..., :d_inner]
     xBC = zxbcdt[..., d_inner:2 * d_inner + 2 * N]
@@ -140,7 +143,7 @@ def ssd_block(cfg, p, x, mode, cache=None, use_pallas=False):
         new_cache = cache
 
     y = y.reshape(Bb, T, d_inner)
-    y = rmsnorm(y * F.silu(z), p["norm_y"], use_kernel=use_pallas)
+    y = gated_rmsnorm(y, z, p["norm_y"], use_kernel=use_pallas)
     out = torch.einsum("bte,ed->btd", *promote(y, p["out_proj"]))
     return shard(out, "batch", "seq", "act_embed"), new_cache
 

@@ -17,9 +17,9 @@ import torch
 
 from repro_torch.dist.sharding import shard
 from repro_torch.models.griffin import rglru_block, rglru_cache_specs, rglru_defs
-from repro_torch.models.layers import (attention, attn_cache_shape, attn_defs,
-                                       block_cfg_for, ffn, ffn_defs, promote,
-                                       rmsnorm)
+from repro_torch.models.layers import (add_rmsnorm, attention, attn_cache_shape,
+                                       attn_defs, block_cfg_for, ffn, ffn_defs,
+                                       promote, rmsnorm)
 from repro_torch.models.params import ParamDef, stack_defs
 from repro_torch.models.ssm import ssd_block, ssd_cache_specs, ssd_defs
 from repro_torch.models.tree import tree_map
@@ -75,34 +75,50 @@ def transformer_defs(cfg) -> dict:
 # ---------------------------------------------------------------------------
 # one block
 # ---------------------------------------------------------------------------
-def apply_block(cfg, kind, p, x, positions, mode, cache=None, cur_index=None):
-    """Returns (x, new_cache, aux_loss)."""
+def add_norm(cfg, x, h, w):
+    """``(x + h, rmsnorm(x + h, w))``; ``h`` None: nothing to add."""
+    if h is None:
+        return x, rmsnorm(x, w, use_kernel=cfg.use_pallas)
+    return add_rmsnorm(x, h, w, use_kernel=cfg.use_pallas)
+
+
+def block_deferred(cfg, kind, p, x, positions, mode, cache=None, cur_index=None,
+                   delta=None):
+    """One block whose input is ``x + delta`` and whose last residual add
+    is left pending. Returns (x, delta, new_cache, aux_loss): the block's
+    output is ``x + delta``."""
     bc = block_cfg_for(cfg, kind)
-
-    def norm(t, w):
-        return rmsnorm(t, w, use_kernel=cfg.use_pallas)
-
-    if bc.kind == "attn":
-        h, c = attention(cfg, bc, p["mixer"], norm(x, p["norm1"]), positions,
-                         mode, cache, cur_index)
-    elif bc.kind == "rglru":
-        h, c = rglru_block(cfg, p["mixer"], norm(x, p["norm1"]), mode, cache,
-                           cfg.use_pallas)
+    if bc.kind == "ssd":
+        x, u = add_norm(cfg, x, delta, p["mixer"]["norm"])
+        h, c = ssd_block(cfg, p["mixer"], x, mode, cache, cfg.use_pallas, u=u)
     else:
-        h, c = ssd_block(cfg, p["mixer"], x, mode, cache, cfg.use_pallas)
-    x = x + h
+        x, u = add_norm(cfg, x, delta, p["norm1"])
+        if bc.kind == "attn":
+            h, c = attention(cfg, bc, p["mixer"], u, positions, mode, cache,
+                             cur_index)
+        else:
+            h, c = rglru_block(cfg, p["mixer"], u, mode, cache, cfg.use_pallas)
     aux = 0.0
     if "ffn" in p:
-        f, aux = ffn(cfg, p["ffn"], norm(x, p["norm2"]))
-        x = x + f
-    return x, c, aux
+        x, u = add_norm(cfg, x, h, p["norm2"])
+        h, aux = ffn(cfg, p["ffn"], u)
+    return x, h, c, aux
+
+
+def apply_block(cfg, kind, p, x, positions, mode, cache=None, cur_index=None):
+    """Returns (x, new_cache, aux_loss)."""
+    x, h, c, aux = block_deferred(cfg, kind, p, x, positions, mode, cache,
+                                  cur_index)
+    return x + h, c, aux
 
 
 # ---------------------------------------------------------------------------
 # the stack (loop over stacked cycles + unstacked remainder)
 # ---------------------------------------------------------------------------
 def run_blocks(cfg, params, x, positions, mode, caches=None, cur_index=None):
-    """Returns (x, new_caches, aux_total).
+    """Returns (x, delta, new_caches, aux_total): the stack's output is
+    ``x + delta``, the last block's residual add left to the final norm
+    (``add_norm``).
 
     Prefill stacks the per-layer caches along the leading ``layers`` axis.
     Decode writes each layer's new KV (or conv window and recurrent state)
@@ -114,6 +130,7 @@ def run_blocks(cfg, params, x, positions, mode, caches=None, cur_index=None):
     blocks_p = params["blocks"]
     new_caches: dict = {}
     aux_total = 0.0
+    delta = None
 
     if "cycle" in blocks_p:
         cyc_p = blocks_p["cycle"]
@@ -125,8 +142,9 @@ def run_blocks(cfg, params, x, positions, mode, caches=None, cur_index=None):
             new_c = {}
             for j, kind in enumerate(pattern):
                 cj = None if c_i is None else c_i[f"p{j}"]
-                x, cj_new, aux = apply_block(cfg, kind, p_i[f"p{j}"], x,
-                                             positions, mode, cj, cur_index)
+                x, delta, cj_new, aux = block_deferred(
+                    cfg, kind, p_i[f"p{j}"], x, positions, mode, cj, cur_index,
+                    delta)
                 new_c[f"p{j}"] = cj_new
                 aux_total = aux_total + aux
             per_layer.append(new_c)
@@ -139,12 +157,13 @@ def run_blocks(cfg, params, x, positions, mode, caches=None, cur_index=None):
     rem_kinds = cfg.layer_kinds()[n_cyc * len(pattern):]
     for i, kind in enumerate(rem_kinds):
         ci = None if caches is None else caches.get(f"rem{i}")
-        x, c_new, aux = apply_block(cfg, kind, blocks_p[f"rem{i}"], x,
-                                    positions, mode, ci, cur_index)
+        x, delta, c_new, aux = block_deferred(cfg, kind, blocks_p[f"rem{i}"], x,
+                                              positions, mode, ci, cur_index,
+                                              delta)
         if mode != "train":
             new_caches[f"rem{i}"] = c_new
         aux_total = aux_total + aux
-    return x, (new_caches if mode != "train" else None), aux_total
+    return x, delta, (new_caches if mode != "train" else None), aux_total
 
 
 # ---------------------------------------------------------------------------

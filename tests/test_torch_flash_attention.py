@@ -209,7 +209,7 @@ def test_check_rejects_what_the_kernels_do_not_take(case):
     if case == "dtype":
         q, k, v, err = q.half(), k.half(), v.half(), TypeError
     elif case == "head_dim":
-        q, k, v = q[..., :48].contiguous(), k[..., :48].contiguous(), v[..., :48].contiguous()
+        q, k, v = q[..., :40].contiguous(), k[..., :40].contiguous(), v[..., :40].contiguous()
     elif case == "contiguous":
         q = torch.zeros((1, 4, 64, 64), dtype=torch.bfloat16).transpose(1, 2)
     elif case == "aligned":
@@ -220,3 +220,41 @@ def test_check_rejects_what_the_kernels_do_not_take(case):
         k = v = torch.zeros((1, 64, 3, 64), dtype=torch.bfloat16)
     with pytest.raises(err):
         FA._check(q, k, v, window)
+
+
+# ---------------------------------------------------------------------------
+# every head dim the Pallas kernel takes
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", FA.HEAD_DIMS)
+def test_check_accepts_every_head_dim_that_is_a_multiple_of_16(d, dtype):
+    """The Pallas kernel's blocks span the whole head dim, so it takes any
+    d; the port's kernels take every multiple of 16 up to 256."""
+    q = torch.zeros((1, 64, 4, d), dtype=dtype)
+    k = torch.zeros((1, 64, 2, d), dtype=dtype)
+    FA._check(q, k, k, None)
+    assert FA.kernel_source(dtype, d) == (
+        "flash_attention_f32" if dtype == torch.float32
+        else "flash_attention" if d in (64, 128, 256) else "flash_attention_mma")
+
+
+@pytest.mark.parametrize("d", [8, 72, 250, 272])
+def test_check_rejects_head_dims_no_kernel_takes(d):
+    q = torch.zeros((1, 64, 4, d), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        FA._check(q, q, q, None)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_plain_matches_pallas_and_ref_at_head_dim_80(causal, dtype):
+    """hubert-xlarge's head dim (80: non-causal MHA, 16 heads at full size),
+    which the port's kernels take on the mma.sync and float32 paths."""
+    arrs = _inputs(1, 128, 128, 4, 4, 80, seed=80)
+    (jq, jk, jv), (tq, tk, tv) = _both(arrs, dtype)
+    got = flash_attention(tq, tk, tv, causal=causal)
+    assert got.dtype == tq.dtype and tuple(got.shape) == (1, 128, 4, 80)
+    want = ops.flash_attention(jq, jk, jv, causal=causal)
+    np.testing.assert_allclose(_np(got), _np(want), **tol(dtype))
+    np.testing.assert_allclose(
+        _np(got), _np(ref.flash_attention_ref(jq, jk, jv, causal=causal)), **tol(dtype))
