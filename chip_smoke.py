@@ -101,7 +101,6 @@ makes.
 """
 from __future__ import annotations
 
-import ctypes
 import gc
 import itertools
 import json
@@ -825,60 +824,6 @@ def phase_rmsnorm() -> dict:
         [worst, main["max_abs_err"]] + [r["max_abs_err"] for r in decode.values()]
         + [r["max_abs_err"] for r in main["prologues"].values()])
     return main
-
-
-RMSNORM_SWEEP = (  # (name, prologue, shape, z's row width)
-    ("granite prefill", "none", (512, 1536), None),
-    ("granite prefill", "add", (512, 1536), None),
-    ("qwen3 prefill", "none", (512, 2048), None),
-    ("mamba2 prefill", "none", (512, 1024), None),
-    ("mamba2 prefill", "gate", (512, 2048), MAMBA2_Z_WIDTH),
-    ("qwen3 qk-norm prefill", "none", (8192, 128), None),
-    ("decode", "add", (1, 1024), None),
-    ("decode", "add", (1, 2048), None),
-    ("decode", "add", (1, 4096), None),
-    ("decode", "add", (4, 2048), None),
-    ("mamba2 decode", "gate", (1, 2048), MAMBA2_Z_WIDTH),
-    ("qwen3 qk-norm decode", "none", (64, 128), None))
-
-
-def phase_rmsnorm_sweep() -> dict:
-    """A bring-up diagnostic, not run by default: the norm kernel's time at
-    the served shapes under each launch plan (units a thread x threads a
-    block where rows are many), beside the launch floor (an empty kernel,
-    torch.cuda._sleep(0), back to back)."""
-    bf16 = torch.bfloat16
-    g = torch.Generator(device=DEV).manual_seed(41)
-    lib = build.load("rmsnorm")
-    lib.rmsnorm_set_plan.argtypes = [ctypes.c_int, ctypes.c_int]
-    floor = device_ms(lambda: torch.cuda._sleep(0), sleep=20_000_000, reps=10)
-    log(f"[rmsnorm sweep] launch floor (an empty kernel) {floor * 1e3:.2f} us")
-    res = {"floor_ms": floor}
-    for name, kind, shape, width in RMSNORM_SWEEP:
-        x, h, w = rmsnorm_inputs(g, shape, bf16, bf16, bf16, b_width=width)
-        kernel, plain = RMSNORM_CALLS[kind]
-        row = {}
-        for per, block in itertools.product((1, 2, 4), (128, 256, 512)):
-            lib.rmsnorm_set_plan(per, block)
-            try:
-                got = kernel(x, h, w)
-                got = got[1] if kind == "add" else got
-                want = plain(x, h, w)
-                want = want[1] if kind == "add" else want
-                err, ok = _close(got, want, RMSNORM_TOL[bf16])
-                if not ok:
-                    fail(f"rmsnorm sweep {name} [{kind}] per={per} block={block}: "
-                         f"max_abs_err {err}")
-                row[f"{per}x{block}"] = device_ms(lambda: kernel(x, h, w),
-                                                  sleep=20_000_000, reps=10)
-            finally:
-                lib.rmsnorm_set_plan(0, 0)
-        best = min(row, key=row.get)
-        log(f"[rmsnorm sweep] {name} [{kind}] {shape}: "
-            + " ".join(f"{k} {v * 1e3:.2f}" for k, v in row.items())
-            + f" us; best {best}")
-        res[f"{name} {kind} {shape}"] = row
-    return res
 
 
 # ---------------------------------------------------------------------------
@@ -2028,8 +1973,7 @@ def serve_model(arch) -> dict:
 ONLY_PHASES = {"kernels": lambda: phase_kernels(), "ssd_scan": lambda: phase_ssd_scan(),
                "rglru_scan": lambda: phase_rglru_scan(),
                "rmsnorm": lambda: phase_rmsnorm(), "cold_scan": lambda: phase_cold_scan(),
-               "tile_cost": lambda: phase_tile_cost(),
-               "rmsnorm_sweep": lambda: phase_rmsnorm_sweep()}
+               "tile_cost": lambda: phase_tile_cost()}
 
 
 def main():

@@ -28,20 +28,27 @@
 // of dependent loads, reduction and stores are the time, and what the
 // prologues save is the eager add, silu and multiply launches around it.
 //
-// Design: a row is G threads (a power of two from 1 to 512: lanes of a
-// warp for narrow rows, whole warps for wide ones), each holding at most 32
-// elements in registers, loaded 16 bytes of a at a time where every row
-// starts 16-byte aligned (the vector path; else one element at a time).
-// The host picks G so that a thread holds about four vectors, and the rows
-// a block holds from the row count and the SM count: wide shapes of few
-// rows get many short blocks (granite's 512 prefill rows are 512 blocks of
-// 2 warps, not 128 blocks of 4 rows), a decode step's single row one block
-// of G threads, and narrow rows (qk-norm's 128) share warps. All loads (a,
-// b and w) are issued before the first use, so w's round trip overlaps a's
-// rather than following the reduction. The sum of squares reduces by warp
-// shuffles within a row's lanes and, for rows wider than a warp, once
-// through shared memory; the scale pass runs from the registers and stores
-// in the same pattern as the loads.
+// Design: a block is (G threads a row) x (R rows). G is a power of two up
+// to a warp (lanes of one warp for narrow rows: qk-norm's 128 takes 8 or
+// 16 lanes) and whole warps above, up to 512; each thread holds its units in
+// registers, a unit being 16 bytes of a where every row of every operand
+// is 16-byte aligned (the vector path) or else one element. The host
+// picks G so that a thread holds one unit where the rows are fewer than
+// the SMs (a decode step's 1-64 rows: more threads, shorter chains) and
+// two otherwise (a prefill's rows), and R so that wide shapes of few rows
+// run as many short blocks (granite's 512 prefill rows are 512 blocks of
+// 3 warps, not 128 blocks of 4 rows) and narrow rows share blocks of 256
+// threads. A launch plan sweep (units 1/2/4 a thread x 128/256/512
+// threads a block at the served shapes) chose this: PERF.md. Rows within
+// kMaxG threads of two units take the narrow instantiation (registers for
+// two units: 31-64 registers), wider ones the wide (32 elements a thread,
+// up to 128 registers); with the wide registers everywhere, one unit a
+// thread at granite's shape took 4.68 us against 3.61. All loads (a, b and w) are issued before the
+// first use, so w's round trip overlaps a's rather than following the
+// reduction. The sum of squares reduces by warp shuffles within a row's
+// lanes and, for rows wider than a warp, once through shared memory, each
+// warp summing the row's partials with a shuffle; the scale pass runs from
+// the registers and stores in the same pattern as the loads.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -218,12 +225,6 @@ int sm_count() {
   return count[dev];
 }
 
-// What the host aims for (a bring-up sweep sets other values): units a
-// thread (0: 1 where rows are fewer than the SMs, else kUnitsPerThread) and
-// threads a block where rows are many.
-int g_per = 0;
-int g_block = kBlockThreads;
-
 template <int kP, typename TA, typename TB, typename TW, bool kVec, bool kWide>
 int launch_plan(const void* a, const void* b, const void* w, void* s_out, void* y_out,
                 int rows, int D, long long lda, long long ldb, int G, int R, float eps,
@@ -245,7 +246,7 @@ int launch(const void* a, const void* b, const void* w, void* s_out, void* y_out
   const int nunits = D / kV;
   // G threads a row, each about per units: a power of two up to a warp,
   // whole warps above
-  const int per = g_per > 0 ? g_per : rows < sm_count() ? 1 : kUnitsPerThread;
+  const int per = rows < sm_count() ? 1 : kUnitsPerThread;
   int G = (nunits + per - 1) / per;
   if (G <= kWarp) {
     int p2 = 1;
@@ -257,10 +258,10 @@ int launch(const void* a, const void* b, const void* w, void* s_out, void* y_out
   if (G > kMaxG) G = kMaxG;
   const bool wide = nunits > G * kNarrowUnits;
   if (nunits > G * (kWidePer / kV)) return (int)cudaErrorInvalidValue;
-  // rows a block: about two blocks an SM where rows allow, at most g_block
-  // threads (one row if G is wider), and whole warps
+  // rows a block: about two blocks an SM where rows allow, at most
+  // kBlockThreads threads (one row if G is wider), and whole warps
   const int fill = rows / (2 * sm_count());
-  int R = G >= g_block ? 1 : g_block / G;
+  int R = G >= kBlockThreads ? 1 : kBlockThreads / G;
   if (fill < R) R = fill > 1 ? fill : 1;
   if (R * G < kWarp) R = kWarp / G;
   else R = (R * G + kWarp - 1) / kWarp * kWarp / G;
@@ -325,13 +326,6 @@ int dispatch_ab(int a_dtype, int b_dtype, int w_dtype, const void* a, const void
 }
 
 }  // namespace
-
-// A bring-up sweep's plan: units a thread and threads a block (0: the
-// defaults).
-extern "C" void rmsnorm_set_plan(int per, int block_threads) {
-  g_per = per > 0 ? per : 0;
-  g_block = block_threads > 0 ? block_threads : kBlockThreads;
-}
 
 // a: (rows, D) with row stride lda; b: (rows, D) with row stride ldb (read
 // by the add and gate prologues only); w: (D,); y_out and s_out (written by
