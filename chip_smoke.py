@@ -740,8 +740,10 @@ def rmsnorm_case(g, name, shape, dtype, w_dtype, offset=0, timed=False, kind="no
 
 RMSNORM_DECODE = ((1, 1024), (4, 1024), (1, 1536), (4, 1536), (1, 2048), (4, 2048),
                   (1, 4096), (4, 4096))  # a decode step's rows: 1 or 4 slots
-QK_NORM_DECODE = (64, 128)  # qwen3's q/k norm at 4 slots: 4 x 16 heads of 128
-MAMBA2_Z_WIDTH = 4384  # mamba2-370m's in_proj output: z, x, B, C, dt
+_QWEN3, _MAMBA2 = get_config("qwen3-1.7b"), get_config("mamba2-370m")
+QK_NORM_DECODE = (4 * _QWEN3.num_heads, _QWEN3.head_dim)  # q/k norm at 4 slots
+MAMBA2_Z_WIDTH = (2 * _MAMBA2.d_inner + 2 * _MAMBA2.ssm_state
+                  + _MAMBA2.ssm_heads)  # its in_proj output: z, x, B, C, dt
 
 
 def phase_rmsnorm() -> dict:

@@ -198,7 +198,7 @@ __global__ void __launch_bounds__(kMaxThreads) rmsnorm_kernel(
   }
   const float r = rsqrtf(ss / (float)D + eps);
 
-  TO* sr = s_out + row * D;
+  TO* sr = kP == kAdd ? s_out + row * D : nullptr;
   TO* yr = y_out + row * D;
 #pragma unroll
   for (int i = 0; i < kUnits; ++i) {
