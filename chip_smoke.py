@@ -85,19 +85,45 @@ no result):
               degrades 5x mid-run, RecompositionController gated on
               PlacementScorer(backend="torch"); the adaptive post-drift
               median beats the static one by >= 25%
+ 11. obs      the observability plane: (a) the Fig-4 DAG, 16 seeds x 4096
+              requests on the card with Tracer(sample=64) and without, in
+              turns: totals equal exactly, each trace's critical-path
+              attribution sums to its total (rel 1e-9), sigma-0 traces equal
+              the numpy backend's node by node (atol 1e-9), 4 cold_scan
+              launches a call, warm walls; (b) after qwen3-1.7b's phases 4-7,
+              on its loaded weights, the federated workflow under
+              instrument() with a MetricsRegistry, a TailSampler and an
+              SloTracker, untraced and traced turns of 3 requests: the
+              critical path is prefill -> decode and explains total_s within
+              5%, a side-stream prefetch lands its events on the bound span,
+              the Chrome trace (build/chip_smoke_obs_trace.json) parses back
+              with every span, exact kernel launches, total_s traced against
+              untraced (reported); (c) calibrate() from (b)'s last trace and
+              WhatIfProfiler on the card (torch) against numpy: the same
+              ranking, predictions and deltas within 1e-9 relative; (d) phase
+              10's drift scenario on the real engine behind
+              AdaptiveDeployment(tracer=..., slo=...): the swap's
+              recompose.decision and cutover events land in the tracer's ring
+ 12. jobs     on qwen3-1.7b's weights, a JobManager over the same workflow
+              with decode failing 30% of attempts, 3 attempts and a hedge
+              after half a decode: 4 client threads submit 8 prompts twice
+              each; kept + dead-lettered == submitted, every kept job's
+              tokens equal an unfaulted run's, a resubmitted completed job
+              dedups, a job timed out short of one decode dead-letters with
+              status "timeout"; exact kernel launches
 Then one JSON line describing every kernel (launches counted over the main
-paths: serving and batching of the four models for flash_attention,
-ssd_scan, rglru_scan and rmsnorm, the simulator and the recomposition
-phases for cold_scan), the card's name and power limit, and the last line
-{"ok": true, "device": {...}}.
+paths: serving and batching of the four models and phases 11 (b) and 12
+for flash_attention, ssd_scan, rglru_scan and rmsnorm, the simulator, the
+recomposition and phase 11's (a, c, d) for cold_scan), the card's name and
+power limit, and the last line {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --only kernels,ssd_scan
 
 runs phases 1-2 and the named ones of kernels, ssd_scan, rglru_scan,
-rmsnorm and cold_scan only (a short call to bring up a kernel), prints
-their results and no final line. ``--only tile_cost`` times one kv tile of
-the wgmma flash kernel at d = 64, 128, 256, a diagnostic no default run
-makes.
+rmsnorm, cold_scan, obs and jobs only (a short call to bring up a kernel
+or a phase), prints their results and no final line. ``--only tile_cost``
+times one kv tile of the wgmma flash kernel at d = 64, 128, 256, a
+diagnostic no default run makes.
 """
 from __future__ import annotations
 
@@ -129,11 +155,14 @@ from repro_torch.core import (Deployment, ObjectStore, Platform,  # noqa: E402
                               PlatformRegistry, Prefetcher, StepSpec,
                               TensorSpec, WorkflowSpec, DataRef)
 from repro_torch.adapt import (  # noqa: E402
-    PlacementScorer, RecompositionController, TelemetryHub)
+    AdaptiveDeployment, PlacementScorer, RecompositionController, TelemetryHub)
 from repro_torch.core import simulator as SIM  # noqa: E402
 from repro_torch.core import torchsim  # noqa: E402
 from repro_torch.core.shipping import PlacementCosts  # noqa: E402
-from repro_torch.dag import DagSpec, DagStep, document_dag_fig4  # noqa: E402
+from repro_torch.dag import (DagDeployment, DagSpec, DagStep,  # noqa: E402
+                             document_dag_fig4)
+from repro_torch.jobs import (FaultEvent, FaultSchedule, JobManager,  # noqa: E402
+                              RetryPolicy)
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.cold_scan import (  # noqa: E402
     cold_scan, cold_scan_parallel, cold_scan_plain, cold_scan_plan)
@@ -150,6 +179,9 @@ from repro_torch.models import ssm as SSM  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models.transformer import _is_spec, cache_defs, cast_params  # noqa: E402
 from repro_torch.models.tree import tree_leaves, tree_map  # noqa: E402
+from repro_torch.obs import (MetricsRegistry, SloSpec, SloTracker,  # noqa: E402
+                             TailSampler, Tracer, WhatIfProfiler, calibrate,
+                             extract_critical_path, instrument, write_chrome_trace)
 from repro_torch.serving import Request, ServingEngine, pad_cache  # noqa: E402
 
 DEV = torch.device("cuda:0")
@@ -856,61 +888,109 @@ def greedy(logits) -> int:
     return int(torch.argmax(logits[0]))
 
 
-def phase_federated(cfg, params, prompts):
+SERVE_WF = WorkflowSpec((StepSpec("prefill", "prefill-pod"),
+                         StepSpec("decode", "decode-pod")), "serve")
+
+
+def serving_registry():
     reg = PlatformRegistry()
     reg.register(Platform("prefill-pod", "us-east", native_prefetch=True,
                           device=str(DEV)))
     reg.register(Platform("decode-pod", "us-west", native_prefetch=True,
                           device=str(DEV)))
+    return reg
+
+
+class InFlight:
+    """Counts handler calls in progress, from any thread: a timed-out or
+    hedged-away attempt keeps running after its request has returned."""
+
+    def __init__(self):
+        self.n = 0
+        self._cv = threading.Condition()
+
+    def track(self, fn):
+        def call(*a):
+            with self._cv:
+                self.n += 1
+            try:
+                return fn(*a)
+            finally:
+                with self._cv:
+                    self.n -= 1
+                    self._cv.notify_all()
+        return call
+
+    def wait_idle(self, timeout_s=120.0):
+        with self._cv:
+            if not self._cv.wait_for(lambda: self.n == 0, timeout_s):
+                raise AssertionError(f"{self.n} handler calls still running "
+                                     f"after {timeout_s} s")
+
+
+def deploy_serving(dep, cfg, params) -> InFlight:
+    """Deploy the federated workflow's two steps on ``dep``: prefill ships
+    its caches through the object store (one key a call), decode fetches
+    them per call, so two attempts of one decode (a retry, a hedge) never
+    share a cache tensor, and runs NEW_TOKENS - 1 greedy steps. Both
+    handlers end in a device-to-host copy (``greedy``): they return host
+    values, so a traced compute span closes after the device work."""
+    dep.store.network.set_link("us-east", "us-west", 0.02, 200e6)
     V = cfg.vocab_size
-    with Deployment(reg) as dep:
-        dep.store.network.set_link("us-east", "us-west", 0.02, 200e6)
+    keys = itertools.count()
+    inflight = InFlight()
 
-        def prefill_fn(payload, data):
-            tokens = torch.as_tensor(payload, device=DEV)[None]
-            logits, caches = M.prefill(cfg, params, {"tokens": tokens})
-            if tuple(logits.shape) != (1, V):
-                raise AssertionError(f"prefill logits shape {tuple(logits.shape)}")
+    def prefill_fn(payload, data):
+        tokens = torch.as_tensor(payload, device=DEV)[None]
+        logits, caches = M.prefill(cfg, params, {"tokens": tokens})
+        if tuple(logits.shape) != (1, V):
+            raise AssertionError(f"prefill logits shape {tuple(logits.shape)}")
+        tok = greedy(logits)
+        caches = pad_cache(caches, MAX_LEN, len(payload), cfg=cfg)
+        key = f"kv/{next(keys)}"
+        dep.store.put(key, tree_map(lambda t: t.cpu(), caches), region="us-east")
+        return {"first_tok": tok, "kv_key": key, "pos": len(payload)}
+
+    def decode_step(token, caches, cur):
+        return M.decode_step(cfg, params, token, caches, cur)
+
+    def decode_fn(payload, data):
+        host_caches, _ = dep.store.get(payload["kv_key"], "us-west")
+        caches = tree_map(lambda t: t.to(DEV), host_caches)
+        tok, cur = payload["first_tok"], payload["pos"]
+        toks = [tok]
+        for _ in range(NEW_TOKENS - 1):
+            logits, caches = decode_step(
+                torch.tensor([[tok]], dtype=torch.int32, device=DEV), caches, cur)
             tok = greedy(logits)
-            caches = pad_cache(caches, MAX_LEN, len(payload), cfg=cfg)
-            key = f"kv/{len(payload)}/{tok}"
-            dep.store.put(key, tree_map(lambda t: t.cpu(), caches),
-                          region="us-east")
-            return {"first_tok": tok, "kv_key": key, "pos": len(payload)}
+            toks.append(tok)
+            cur += 1
+        return toks
 
-        def decode_step(token, caches, cur):
-            return M.decode_step(cfg, params, token, caches, cur)
+    dec_specs = (TensorSpec((1, 1), torch.int32, str(DEV)),
+                 tree_map(lambda d: TensorSpec(d.shape, getattr(torch, d.dtype),
+                                               str(DEV)),
+                          cache_defs(cfg, 1, MAX_LEN), is_leaf=_is_spec),
+                 0)
+    dep.deploy("prefill", inflight.track(prefill_fn), ["prefill-pod"])
+    dep.deploy("decode", inflight.track(decode_fn), ["decode-pod"],
+               abstract_args=dec_specs, compile_fn=decode_step)
+    return inflight
 
-        def decode_fn(payload, data):
-            host_caches, _ = dep.store.get(payload["kv_key"], "us-west")
-            caches = tree_map(lambda t: t.to(DEV), host_caches)
-            tok, cur = payload["first_tok"], payload["pos"]
-            toks = [tok]
-            for _ in range(NEW_TOKENS - 1):
-                logits, caches = decode_step(
-                    torch.tensor([[tok]], dtype=torch.int32, device=DEV), caches,
-                    cur)
-                tok = greedy(logits)
-                toks.append(tok)
-                cur += 1
-            return toks
 
-        dec_specs = (TensorSpec((1, 1), torch.int32, str(DEV)),
-                     tree_map(lambda d: TensorSpec(d.shape, getattr(torch, d.dtype),
-                                                   str(DEV)),
-                              cache_defs(cfg, 1, MAX_LEN), is_leaf=_is_spec),
-                     0)
-        dep.deploy("prefill", prefill_fn, ["prefill-pod"])
-        dep.deploy("decode", decode_fn, ["decode-pod"], abstract_args=dec_specs,
-                   compile_fn=decode_step)
-        wf = WorkflowSpec((StepSpec("prefill", "prefill-pod"),
-                           StepSpec("decode", "decode-pod")), "serve")
+def check_tokens(toks, V, what):
+    if len(toks) != NEW_TOKENS or not all(0 <= t < V for t in toks):
+        raise AssertionError(f"{what}: bad tokens {toks}")
+
+
+def phase_federated(cfg, params, prompts):
+    V = cfg.vocab_size
+    with Deployment(serving_registry()) as dep:
+        deploy_serving(dep, cfg, params)
         results = []
         for i, prompt in enumerate(prompts):
-            r = dep.run(wf, prompt)
-            toks = r.outputs
-            if len(toks) != NEW_TOKENS or not all(0 <= t < V for t in toks):
-                raise AssertionError(f"request {i}: bad tokens {toks}")
+            r = dep.run(SERVE_WF, prompt)
+            check_tokens(r.outputs, V, f"request {i}")
             tl = " | ".join(
                 f"{node}: warm {t['warm_s'] * 1e3:.1f} ms fetch "
                 f"{t['fetch_s'] * 1e3:.1f} ms compute {t['compute_s'] * 1e3:.1f} ms"
@@ -1662,14 +1742,15 @@ ADAPT_SPEC = DagSpec((DagStep("ingest", "client"), DagStep("work", "pA"),
                      (("ingest", "work"), ("work", "deliver")), "adapt-bench")
 
 
-def adapt_costs() -> PlacementCosts:
-    """The static cost model, calibrated before the drift."""
+def adapt_costs(scale=1.0) -> PlacementCosts:
+    """The static cost model, calibrated before the drift (``scale``:
+    seconds a cost unit)."""
     compute = {("ingest", "client"): 0.04, ("deliver", "client"): 0.04,
                ("work", "pA"): 1.0, ("work", "pB"): 1.3}
     return PlacementCosts(
         fetch_s=lambda name, p, deps: 0.0,
-        compute_s=lambda name, p: compute.get((name, p), 0.05),
-        transfer_s=lambda a, b, size: 0.001 if a == b else 0.6,
+        compute_s=lambda name, p: scale * compute.get((name, p), 0.05),
+        transfer_s=lambda a, b, size: scale * (0.001 if a == b else 0.6),
         payload_size=1.5e6)
 
 
@@ -1758,6 +1839,473 @@ def phase_scorer_scan(args) -> dict:
     log(f"[cold_scan] the scorer's shape B={B} T={T} {res['dtype']} (exact): kernel "
         f"{ms * 1e3:.2f} us | plain {plain_ms * 1e3:.1f} us | bound "
         f"{res['bound_ms'] * 1e3:.4f} us (bytes: {nbytes / 1e3:.1f} KB)")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the observability plane (obs) on the card
+# ---------------------------------------------------------------------------
+OBS_SAMPLE = 64  # traced requests of the sweep's first seed
+OBS_SWEEP_TURNS = ("untraced", "traced", "traced", "untraced") * 3
+OBS_SERVE_TURNS = ("untraced", "traced", "traced", "untraced") * 2
+OBS_ATOL = 1e-9  # torch against numpy traces at sigma 0, float64
+OBS_REL = 1e-9  # an attribution against its trace's total
+OBS_PATH_REL = 0.05  # the walked path against the request's total_s
+OBS_SLO_S = 1.0  # the served request's total_s objective (warm: ~0.5 s)
+OBS_ADAPT_REQUESTS = 48  # the controller's requests; pA slows 5x at half
+OBS_ADAPT_SCALE = 0.02  # phase 10's cost units as handler seconds
+TRACE_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                          "chip_smoke_obs_trace.json")
+_NODE_ATTRS = ("poke_t", "prepare_t0", "prepare_t1", "cold_s", "fetch_s",
+               "compute_t0", "compute_s")
+
+
+def trace_gap(got, want) -> float:
+    """Largest |difference| between two lists of traces of the same
+    requests, over every node span's start and end, numeric attrs and
+    per-edge payload and transfer times; raises where their structure
+    differs."""
+    ks = [[t.root.attrs["request_k"] for t in ts] for ts in (got, want)]
+    if ks[0] != ks[1]:
+        raise AssertionError(f"sampled requests differ: {ks}")
+    gap = 0.0
+    for tg, tw in zip(got, want):
+        g, w = tg.node_spans(), tw.node_spans()
+        if set(g) != set(w):
+            raise AssertionError(f"node sets differ: {sorted(g)} vs {sorted(w)}")
+        for n, sw in w.items():
+            sg = g[n]
+            pairs = [(sg.t_start, sw.t_start), (sg.t_end, sw.t_end)]
+            pairs += [(sg.attrs[k], sw.attrs[k]) for k in _NODE_ATTRS]
+            for k in ("payload_t", "transfer_s"):
+                if set(sg.attrs[k]) != set(sw.attrs[k]):
+                    raise AssertionError(f"{n}: {k} edges differ")
+                pairs += [(sg.attrs[k][u], sw.attrs[k][u]) for u in sw.attrs[k]]
+            for a, b in pairs:
+                if (a is None) != (b is None):
+                    raise AssertionError(f"{n}: {a} against {b}")
+                if a is not None:
+                    gap = max(gap, abs(a - b))
+    return gap
+
+
+def check_attribution(trace, total_s, rel, what):
+    """The critical path of ``trace``: its buckets sum to its walked
+    interval (rel 1e-9), and that interval is ``total_s`` within ``rel``."""
+    cp = extract_critical_path(trace)
+    att = sum(cp.attribution.values())
+    if not abs(att - cp.total_s) <= OBS_REL * cp.total_s:
+        raise AssertionError(f"{what}: attribution {att} != path {cp.total_s}")
+    if not abs(cp.total_s - total_s) <= rel * total_s:
+        raise AssertionError(f"{what}: path {cp.total_s} != total {total_s} "
+                             f"within {rel}")
+    return cp
+
+
+def phase_obs_sweep() -> dict:
+    """(a) The Fig-4 DAG on one placement, 16 seeds x 4096 requests, on the
+    card: traced (Tracer(sample=64)) and untraced calls in turns. Every
+    traced call's totals equal the untraced ones exactly; each trace's
+    attribution sums to its total; at sigma 0 the sampled traces equal the
+    numpy backend's node by node; every call launches cold_scan once a
+    node."""
+    steps, edges = document_dag_fig4()
+    n, seeds = SIM_REQUESTS, tuple(range(SIM_SEEDS))
+    launches = []
+
+    def call(sim, spec):
+        before = cold_scan.launches
+        t0 = time.perf_counter()
+        out = sim.simulate(spec, device=DEV)
+        wall = time.perf_counter() - t0
+        launches.append(cold_scan.launches - before)
+        return out, wall
+
+    sim = SIM.WorkflowSimulator(SIM.paper_platforms(), seed=0)
+    spec = SIM.ExperimentSpec(steps, edges=edges, n_requests=n, seeds=seeds)
+    base, _ = call(sim, spec)  # the first call: its costs stay out of the walls
+    walls = {"untraced": [], "traced": []}
+    n_traces = 0
+    for turn in OBS_SWEEP_TURNS:
+        tracer = Tracer(sample=OBS_SAMPLE) if turn == "traced" else None
+        out, wall = call(sim, replace(spec, tracer=tracer))
+        walls[turn].append(wall)
+        if not np.array_equal(out, base):
+            raise AssertionError(f"a {turn} sweep's totals differ from the first "
+                                 f"call's: tracing is not draw-neutral")
+        if tracer is None:
+            continue
+        traces = tracer.traces()
+        if len(traces) != OBS_SAMPLE:
+            raise AssertionError(f"{len(traces)} traces, not {OBS_SAMPLE}")
+        for t in traces:
+            k = t.root.attrs["request_k"]
+            if t.root.attrs["backend"] != "torch" or t.root.attrs["seed"] != 0:
+                raise AssertionError(f"trace attrs {t.root.attrs}")
+            if not abs(t.total_s - out[0, k]) <= OBS_REL * out[0, k]:
+                raise AssertionError(f"request {k}: trace total {t.total_s} != "
+                                     f"sweep total {out[0, k]}")
+            check_attribution(t, t.total_s, OBS_REL, f"sweep request {k}")
+        n_traces += len(traces)
+    if base.shape != (len(seeds), n) or not np.isfinite(base).all():
+        raise AssertionError(f"bad sweep output {base.shape}")
+
+    # sigma 0: the torch traces against the numpy backend's, node by node
+    zsteps = zero_sigma(steps)
+    tt, tn = Tracer(sample=OBS_SAMPLE), Tracer(sample=OBS_SAMPLE)
+    call(SIM.WorkflowSimulator(zero_platforms(), seed=0),
+         SIM.ExperimentSpec(zsteps, edges=edges, n_requests=n, seeds=seeds,
+                            tracer=tt))
+    SIM.WorkflowSimulator(zero_platforms(), seed=0).simulate(
+        SIM.ExperimentSpec(zsteps, edges=edges, n_requests=n, seeds=(0,),
+                           tracer=tn), backend="numpy")
+    gap = trace_gap(tt.traces(), tn.traces())
+    if not gap <= OBS_ATOL:
+        raise AssertionError(f"sigma-0 torch traces differ from numpy by {gap}")
+    if any(k != len(steps) for k in launches):
+        raise AssertionError(f"cold_scan launches a call {launches}, not "
+                             f"{len(steps)}")
+    med = {k: statistics.median(v) for k, v in walls.items()}
+    res = {"shape": [len(seeds), n], "sample": OBS_SAMPLE, "traces": n_traces,
+           "walls_s": walls, "median_untraced_s": med["untraced"],
+           "median_traced_s": med["traced"], "sigma0_max_abs_diff": gap,
+           "calls": len(launches), "launches": sum(launches)}
+    log(f"[obs] (a) traced sweep: {len(seeds)} seeds x {n} requests, Fig-4 DAG, "
+        f"{OBS_SAMPLE} traces a call; totals equal untraced over "
+        f"{len(OBS_SWEEP_TURNS)} turns; attributions sum to totals (rel "
+        f"{OBS_REL:g}); sigma 0 vs numpy traces max |diff| {gap:.3g}; warm walls "
+        f"median untraced {med['untraced'] * 1e3:.2f} ms, traced "
+        f"{med['traced'] * 1e3:.2f} ms; cold_scan {sum(launches)} launches "
+        f"over {len(launches)} calls")
+    return res
+
+
+def untrace(dep):
+    dep.tracer = dep.cache.tracer = dep.prefetcher.tracer = dep.store.tracer = None
+
+
+def serving_launch_gate(cfg, passes, what) -> dict:
+    """The kernels launched since the counts were set to 0: each exactly as
+    often as the counted prefills and forward passes make it."""
+    per_prefill, got = launches_per_prefill(cfg), launch_counts()
+    n_pass = passes["prefill"] + passes["decode"]
+    for name, want in per_prefill.items():
+        n = want * (n_pass if name == "rmsnorm" else passes["prefill"])
+        if got[name] != n:
+            raise AssertionError(f"{what}: {got[name]} {name} launches != {n} "
+                                 f"(forward passes {passes})")
+    if not got["flash_attention"] or not got["rmsnorm"]:
+        raise AssertionError(f"{what}: the kernels were not launched: {got}")
+    return got
+
+
+def phase_obs_serving(cfg, params, prompts) -> tuple:
+    """(b) The federated prefill -> decode workflow under ``instrument``,
+    with a MetricsRegistry, a TailSampler and an SloTracker: untraced and
+    traced turns of the same requests in one process. Each traced request's
+    critical path is prefill then decode, its attribution sums to it, and
+    it explains ``total_s`` within 5%; the Chrome trace parses back with
+    every span. Returns (result, the last trace)."""
+    V = cfg.vocab_size
+    spec = SloSpec("serve-total", objective_s=OBS_SLO_S, target=0.9,
+                   fast_window_s=60.0, slow_window_s=600.0, min_count=4)
+    sampler = TailSampler(window_s=600.0, head_every=1, slo=spec, min_count=4)
+    tracer = Tracer(max_traces=64, metrics=MetricsRegistry(), sampler=sampler)
+    slo = SloTracker(spec, tracer=tracer)
+    totals, paths = {"untraced": [], "traced": []}, []
+    for k in MODEL_KERNELS.values():
+        k.launches = 0
+    with counting_passes() as passes, Deployment(serving_registry()) as dep:
+        deploy_serving(dep, cfg, params)
+        check_tokens(dep.run(SERVE_WF, prompts[0]).outputs, V, "cold request")
+        for turn in OBS_SERVE_TURNS:
+            if turn == "traced":
+                instrument(dep, tracer)
+            else:
+                untrace(dep)
+            for i, prompt in enumerate(prompts):
+                r = dep.run(SERVE_WF, prompt)
+                check_tokens(r.outputs, V, f"{turn} request {i}")
+                totals[turn].append(r.total_s)
+                if turn == "untraced":
+                    continue
+                slo.record(r.total_s, now=time.perf_counter())
+                trace = tracer.last()
+                if trace is None or trace.trace_id != r.request_id:
+                    raise AssertionError(f"request {r.request_id} left no trace")
+                cp = check_attribution(trace, r.total_s, OBS_PATH_REL,
+                                       f"served request {i}")
+                if cp.nodes != ["prefill", "decode"]:
+                    raise AssertionError(f"critical path {cp.nodes}")
+                paths.append({"prompt": len(prompt), "total_s": r.total_s,
+                              "path_s": cp.total_s, "attribution": cp.attribution})
+            for key in dep.store.keys("kv/"):
+                dep.store.delete(key)
+        # the side-stream prefetch: its pool thread lands the fetch events on
+        # the span bound where the fetch started
+        instrument(dep, tracer)
+        probe = torch.arange(1 << 16, dtype=torch.float32)
+        dep.store.put("obs/probe", probe, region="us-east")
+        span = tracer.begin(name="probe").span("poke:probe", "poke",
+                                               attrs={"node": "probe"})
+        with tracer.bind(span):
+            futs = dep.prefetcher.start([DataRef("obs/probe", "us-east")],
+                                        "us-west", device=DEV)
+        data, _, _ = dep.prefetcher.join(futs)
+        sync()
+        if not torch.equal(data["obs/probe"].cpu(), probe):
+            raise AssertionError("the side-stream prefetch changed the tensor")
+        if [e[1] for e in span.events] != ["prefetch.start", "prefetch.done"]:
+            raise AssertionError(f"prefetch events on the bound span: {span.events}")
+        report = dep.report()
+        untrace(dep)
+    launches = serving_launch_gate(cfg, passes.n, "obs serving")
+    traces = tracer.traces()
+    os.makedirs(os.path.dirname(TRACE_PATH), exist_ok=True)
+    write_chrome_trace(TRACE_PATH, traces, tracer=tracer)
+    with open(TRACE_PATH) as f:
+        doc = json.load(f)
+    xs = [e for e in doc["traceEvents"] if e["ph"] == "X"]
+    n_spans = sum(len(t.spans) for t in traces)
+    if len(traces) != len(paths) or len(xs) != n_spans:
+        raise AssertionError(f"chrome trace: {len(xs)} complete events for "
+                             f"{n_spans} spans of {len(traces)} traces")
+    med = {k: statistics.median(v) for k, v in totals.items()}
+    att = {b: statistics.median(p["attribution"][b] for p in paths)
+           for b in paths[0]["attribution"]}
+    res = {"turns": list(OBS_SERVE_TURNS), "total_s": totals,
+           "median_untraced_s": med["untraced"], "median_traced_s": med["traced"],
+           "overhead": med["traced"] / med["untraced"] - 1, "paths": paths,
+           "median_attribution_s": att, "chrome_trace": os.path.relpath(TRACE_PATH),
+           "chrome_events": len(doc["traceEvents"]), "spans": n_spans,
+           "metrics_request_s": report["metrics"]["request_s/all"],
+           "sampler": report["trace_sampler"], "slo": slo.snapshot(),
+           "launches": launches, "passes": dict(passes.n)}
+    log(f"[obs] (b) traced serving {cfg.name}: {len(paths)} traced and "
+        f"{len(totals['untraced'])} untraced requests in turns; critical path "
+        f"prefill -> decode explains total_s within {OBS_PATH_REL:g}; median "
+        f"total_s untraced {med['untraced']:.4f} s, traced {med['traced']:.4f} s "
+        f"({res['overhead'] * 100:+.2f}%); median attribution "
+        + ", ".join(f"{b} {v * 1e3:.2f} ms" for b, v in att.items() if v)
+        + f"; chrome trace {res['chrome_trace']}: {len(doc['traceEvents'])} "
+        f"events, {n_spans} spans; launches {launches} over {passes.n}")
+    return res, traces[-1]
+
+
+def phase_obs_profiler(trace) -> dict:
+    """(c) calibrate from a served trace, then rank every virtual
+    intervention on the card (torch) and on the host (numpy), 16 seeds x
+    4096 requests: the same order, predictions and deltas within 1e-9
+    relative (+1e-12 s for the deltas, which are 0 for a hidden
+    intervention), and the torch ranking launches cold_scan once a node a
+    sweep."""
+    world = calibrate(trace)
+    kw = {"n_requests": SIM_REQUESTS, "seeds": tuple(range(SIM_SEEDS))}
+    before = cold_scan.launches
+    t0 = time.perf_counter()
+    got = WhatIfProfiler(world, backend="torch", device=DEV, **kw).rank()
+    torch_s = time.perf_counter() - t0
+    launches = cold_scan.launches - before
+    t0 = time.perf_counter()
+    want = WhatIfProfiler(world, backend="numpy", **kw).rank()
+    numpy_s = time.perf_counter() - t0
+    if [(i.kind, i.target) for i in got] != [(i.kind, i.target) for i in want]:
+        raise AssertionError(f"rankings differ: {[i.label for i in got]} vs "
+                             f"{[i.label for i in want]}")
+    worst = 0.0
+    for g, w in zip(got, want):
+        worst = max(worst, abs(g.predicted_s - w.predicted_s) / abs(w.predicted_s))
+        if not (abs(g.predicted_s - w.predicted_s) <= OBS_REL * abs(w.predicted_s)
+                and abs(g.delta_s - w.delta_s) <= OBS_REL * abs(w.delta_s) + 1e-12):
+            raise AssertionError(f"{g.label} against {w.label}")
+    if launches != len(world.steps) * (len(got) + 1):
+        raise AssertionError(f"{launches} cold_scan launches for {len(got) + 1} "
+                             f"sweeps of {len(world.steps)} nodes")
+    res = {"ranking": [i.label for i in got], "interventions": len(got),
+           "max_rel_diff": worst, "torch_s": torch_s, "numpy_s": numpy_s,
+           "launches": launches}
+    log(f"[obs] (c) what-if profiler on the served trace: {len(got)} "
+        f"interventions, {SIM_SEEDS} seeds x {SIM_REQUESTS} requests; torch "
+        f"ranking == numpy (max rel diff {worst:.3g}); walls torch {torch_s:.3f} "
+        f"s, numpy {numpy_s:.3f} s; cold_scan {launches} launches; top: "
+        + "; ".join(res["ranking"][:3]))
+    return res
+
+
+def phase_obs_controller() -> dict:
+    """(d) Phase 10's drift scenario on the real engine: the 3-step chain
+    behind AdaptiveDeployment(tracer=..., slo=...), gated on the torch
+    scorer, pA's handler 5x slower from half-way. The swap to pB and its
+    decisions land in the tracer's ring; every request leaves a trace."""
+    reg = PlatformRegistry()
+    reg.register(Platform("client", "edge", kind="edge", native_prefetch=True,
+                          device=str(DEV)))
+    reg.register(Platform("pA", "region-a", kind="cloud", device=str(DEV)))
+    reg.register(Platform("pB", "region-b", kind="cloud", device=str(DEV)))
+    for region in ("region-a", "region-b"):  # the store's wire time: the costs'
+        reg.network.set_link("edge", region, 2 * 0.6 * OBS_ADAPT_SCALE, 1e12)
+    slow = {"pA": 1.0, "pB": 1.0}
+
+    def work_on(plat):
+        def work(p, d):
+            time.sleep(ADAPT_WORK[plat].median * OBS_ADAPT_SCALE * slow[plat])
+            return p * 2
+        return work
+
+    tracer = Tracer(max_traces=OBS_ADAPT_REQUESTS)
+    slo = SloTracker(SloSpec("adapt-total", objective_s=0.05, target=0.9,
+                             fast_window_s=5.0, slow_window_s=20.0, min_count=4))
+    scorer = PlacementScorer(quantile=0.9, backend="torch", device=DEV)
+    before = cold_scan.launches
+    with DagDeployment(reg) as dep:
+        dep.deploy("ingest", lambda p, d: p, ["client"])
+        dep.deploy("deliver", lambda p, d: p, ["client"])
+        for plat in ("pA", "pB"):
+            dep.deploy("work", work_on(plat), [plat])
+        adapt = AdaptiveDeployment(
+            dep, ADAPT_SPEC, {"work": ["pA", "pB"]}, adapt_costs(OBS_ADAPT_SCALE),
+            every_n=8, drift_ratio=1.4, min_samples=2, scorer=scorer,
+            tracer=tracer, slo=slo)
+        swaps = []
+        for k in range(OBS_ADAPT_REQUESTS):
+            if k == OBS_ADAPT_REQUESTS // 2:
+                slow["pA"] = 5.0
+            if adapt.run(k).outputs != 2 * k:
+                raise AssertionError(f"request {k}: wrong output")
+            swaps += [{"request": k, "trigger": s["trigger"], **s["moved"]}
+                      for s in list(adapt.swaps)[len(swaps):]]
+        report = adapt.report()
+    launches = cold_scan.launches - before
+    names = [e[1] for e in tracer.events]
+    res = {"requests": OBS_ADAPT_REQUESTS, "swaps": swaps,
+           "decisions": names.count("recompose.decision"),
+           "cutovers": names.count("recompose.cutover"),
+           "traces": len(tracer.traces()), "slo": slo.snapshot(),
+           "controller": report["adapt"]["controller"], "launches": launches}
+    log(f"[obs] (d) AdaptiveDeployment(tracer, slo), pA 5x from request "
+        f"{OBS_ADAPT_REQUESTS // 2}: swaps {swaps}; tracer ring "
+        f"{res['decisions']} recompose.decision, {res['cutovers']} cutover; "
+        f"{res['traces']} request traces; slo alerts {slo.alerts}; cold_scan "
+        f"{launches} launches")
+    if not res["decisions"] or not res["cutovers"] or not swaps:
+        raise AssertionError(f"no recomposition in the tracer ring: {res}")
+    if swaps[-1]["work"] != ("pA", "pB") or res["traces"] != OBS_ADAPT_REQUESTS:
+        raise AssertionError(f"controller phase: {res}")
+    if launches == 0:
+        raise AssertionError("the torch scorer never launched cold_scan")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 12: durable jobs over the served workflow
+# ---------------------------------------------------------------------------
+JOB_PROMPTS = 8
+JOB_THREADS = 4  # each submits 4 prompts: every prompt twice in all
+JOB_FAULTS_SEED = 0  # fails decode's attempts 0-2 of request 0, 0-1 of 5 and 6
+JOB_JOIN_S = 600.0
+
+
+def phase_jobs(cfg, params) -> dict:
+    """A JobManager over the served workflow (on the DAG engine, whose
+    results carry a status) with decode-pod failing 30% of attempts, 3
+    attempts a request and a hedge after half a decode: 4 client threads
+    submit 8 distinct prompts twice each. The ledger balances, every kept
+    job's tokens are an unfaulted run's, a resubmitted completed job
+    dedups, and a job whose timeout is short of one decode dead-letters
+    with status "timeout"."""
+    V = cfg.vocab_size
+    rng = np.random.default_rng(12)
+    lengths = np.linspace(BATCH_PROMPTS[0], BATCH_PROMPTS[1], JOB_PROMPTS + 1)
+    prompts = [rng.integers(1, V, size=int(n)).astype(np.int32) for n in lengths]
+    spec = DagSpec.from_chain(SERVE_WF)
+    for k in MODEL_KERNELS.values():
+        k.launches = 0
+    with counting_passes() as passes:
+        with DagDeployment(serving_registry()) as clean:
+            idle = deploy_serving(clean, cfg, params)
+            want, decode_s = [], []
+            for i, p in enumerate(prompts[:JOB_PROMPTS]):
+                r = clean.run(spec, p)
+                check_tokens(r.outputs, V, f"unfaulted request {i}")
+                want.append(r.outputs)
+                decode_s.append(r.timeline["decode"]["compute_s"])
+            short = 0.5 * min(decode_s)
+            tracer = instrument(clean, Tracer())
+            late = JobManager(clean, timeout_s=short).submit(prompts[-1], spec=spec)
+            idle.wait_idle()
+            status = tracer.last().root.attrs.get("status")
+            if (late.status != "dead_lettered" or "TimeoutError" not in late.error
+                    or status != "timeout" or clean.stats["timeouts"] != 1):
+                raise AssertionError(f"timeout job: {late.status} {late.error} "
+                                     f"trace status {status}")
+        hedge = 0.5 * statistics.median(decode_s)
+        tracer = Tracer(max_traces=64)
+        with DagDeployment(
+                serving_registry(), tracer=tracer,
+                faults=FaultSchedule([FaultEvent("decode-pod", p_error=0.3)],
+                                     seed=JOB_FAULTS_SEED),
+                retry=RetryPolicy(max_attempts=3, hedge_after_s=hedge)) as dep:
+            idle = deploy_serving(dep, cfg, params)
+            jm = JobManager(dep, timeout_s=300.0)
+            got, errs = [], []
+
+            def client(i):
+                try:
+                    for j in range(2 * i, 2 * i + 4):
+                        j %= JOB_PROMPTS
+                        got.append((j, jm.submit(prompts[j], spec=spec)))
+                except Exception as exc:  # raised by the main thread below
+                    errs.append(exc)
+
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(JOB_THREADS)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(JOB_JOIN_S)
+            if errs or any(t.is_alive() for t in threads):
+                raise AssertionError(f"job clients failed or hung: {errs}")
+            idle.wait_idle()
+            stats = dict(jm.stats)
+            kept = {job.job_id: (j, job) for j, job in got
+                    if job.status == "completed"}
+            retried = 0
+            for j, job in kept.values():
+                if job.result.outputs != want[j]:
+                    raise AssertionError(f"prompt {j}: tokens {job.result.outputs} "
+                                         f"!= unfaulted {want[j]}")
+                retried += job.result.timeline["decode"]["attempts"] > 1
+            j0, job0 = next(iter(kept.values()))
+            again = jm.submit(prompts[j0], spec=spec)
+            if (again is not job0 or jm.stats["deduped"] != stats["deduped"] + 1
+                    or jm.stats["executed"] != stats["executed"]):
+                raise AssertionError(f"resubmitted job {j0} did not dedup: {jm.stats}")
+            engine = dep.report()["engine"]
+            letters = [e for e in tracer.events if e[1] == "job.dead_letter"]
+        launches = serving_launch_gate(cfg, passes.n, "jobs")
+    submitted = JOB_THREADS * 4
+    res = {"submitted": stats["submitted"], "kept": stats["kept"],
+           "dead_lettered": stats["dead_lettered"], "deduped": stats["deduped"],
+           "executed": stats["executed"], "kept_retried": retried,
+           "dead_letters": [d.error[:80] for d in jm.dead_letters],
+           "engine": {k: engine[k] for k in ("retries", "attempt_errors", "hedges",
+                                             "hedge_wins", "hedge_cancelled")},
+           "hedge_after_s": hedge, "timeout_s": short, "timeout_job": late.error[:80],
+           "launches": launches, "passes": dict(passes.n)}
+    log(f"[jobs] {submitted} submissions of {JOB_PROMPTS} prompts from "
+        f"{JOB_THREADS} threads, decode-pod p_error 0.3, 3 attempts, hedge after "
+        f"{hedge:.3f} s: kept {stats['kept']} + dead-lettered "
+        f"{stats['dead_lettered']} = submitted {stats['submitted']}; executed "
+        f"{stats['executed']}, deduped {stats['deduped']}; {retried} kept jobs "
+        f"retried; engine {res['engine']}; every kept job's tokens == unfaulted; "
+        f"resubmitted job deduped; the {short:.3f} s timeout job dead-lettered "
+        f"({late.error[:40]}...); launches {launches} over {passes.n}")
+    if (stats["kept"] + stats["dead_lettered"] != stats["submitted"]
+            or stats["submitted"] != submitted):
+        raise AssertionError(f"the job ledger does not balance: {stats}")
+    if not (stats["dead_lettered"] and retried and engine["retries"]
+            and engine["hedges"]) or len(letters) != len(jm.dead_letters):
+        raise AssertionError(f"faults, retries or hedges did not all happen: {res}")
     return res
 
 
@@ -1917,15 +2465,32 @@ def phase_moe(cfg, params, prompt) -> dict:
     return res
 
 
+def serve_prompts(cfg):
+    rng = np.random.default_rng(0)
+    return [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32)
+            for n in SERVE_PROMPTS]
+
+
+OBS_ARCH = "qwen3-1.7b"  # phases 11 (b, c) and 12 run on its loaded weights
+
+
+def serve_obs_jobs(cfg, params, prompts) -> dict:
+    """Phases 11 (b, c) and 12 on one loaded model, each with the kernel
+    counts set to 0 just before it and read just after."""
+    obs, trace = phase_obs_serving(cfg, params, prompts)
+    return {"obs": obs, "profiler": phase_obs_profiler(trace),
+            "jobs": phase_jobs(cfg, params)}
+
+
 def serve_model(arch) -> dict:
     """The serving path of one model at full width: the federated workflow
     and continuous batching with every kernel counter at 0 just before and
-    read just after, then the checks and the profile off the counted path."""
+    read just after, then the checks and the profile off the counted path;
+    for qwen3-1.7b, the traced serving, the profiler and the jobs phases on
+    the same weights."""
     cfg = get_config(arch).replace(use_pallas=True)
     params = make_params(cfg)
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32)
-               for n in SERVE_PROMPTS]
+    prompts = serve_prompts(cfg)
     per_prefill = launches_per_prefill(cfg)
 
     for k in MODEL_KERNELS.values():
@@ -1964,18 +2529,43 @@ def serve_model(arch) -> dict:
     profile = phase_profile(cfg, params, prompts[0])
     norm_ab = phase_norm_ab(cfg, params, prompts[0])
     prologue_ab = phase_prologue_ab(cfg, params, prompts[0])
+    extra = serve_obs_jobs(cfg, params, prompts) if arch == OBS_ARCH else {}
     del params
     torch.cuda.empty_cache()
     return {"arch": arch, "requests": requests, "batching": batching,
             "profile": profile, "launches": total, "passes": passes.n,
             "per_prefill": per_prefill, "window": window, "moe": moe,
-            "norm_ab": norm_ab, "prologue_ab": prologue_ab}
+            "norm_ab": norm_ab, "prologue_ab": prologue_ab, **extra}
+
+
+def phase_obs_only() -> dict:
+    """``--only obs``: phase 11 alone, qwen3-1.7b loaded for (b) and (c)."""
+    res = {"sweep": phase_obs_sweep()}
+    cfg = get_config(OBS_ARCH).replace(use_pallas=True)
+    params = make_params(cfg)
+    res["serving"], trace = phase_obs_serving(cfg, params, serve_prompts(cfg))
+    res["profiler"] = phase_obs_profiler(trace)
+    del params
+    torch.cuda.empty_cache()
+    res["controller"] = phase_obs_controller()
+    return res
+
+
+def phase_jobs_only() -> dict:
+    """``--only jobs``: phase 12 alone, on qwen3-1.7b."""
+    cfg = get_config(OBS_ARCH).replace(use_pallas=True)
+    params = make_params(cfg)
+    res = phase_jobs(cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    return res
 
 
 ONLY_PHASES = {"kernels": lambda: phase_kernels(), "ssd_scan": lambda: phase_ssd_scan(),
                "rglru_scan": lambda: phase_rglru_scan(),
                "rmsnorm": lambda: phase_rmsnorm(), "cold_scan": lambda: phase_cold_scan(),
-               "tile_cost": lambda: phase_tile_cost()}
+               "tile_cost": lambda: phase_tile_cost(), "obs": phase_obs_only,
+               "jobs": phase_jobs_only}
 
 
 def main():
@@ -2023,9 +2613,26 @@ def main():
     if adapt_launches == 0:
         raise AssertionError("the torch scorer never launched cold_scan")
     cs["scorer"] = phase_scorer_scan(scorer_args)
+    # the observability plane's simulator paths: each call and phase counts
+    # its own cold_scan launches
+    obs_sweep = phase_obs_sweep()
+    obs_controller = phase_obs_controller()
+    obs_served = next(m for m in served if m["arch"] == OBS_ARCH)
 
     def model_launches(name):
         return sum(m["launches"][name] for m in served)
+
+    def served_launches(name) -> dict:
+        """Launches by main path: serving and batching of the four models,
+        the traced serving (11 b) and the jobs phase (12) of qwen3-1.7b."""
+        return {"serving": model_launches(name),
+                "obs": obs_served["obs"]["launches"][name],
+                "jobs": obs_served["jobs"]["launches"][name]}
+
+    cold_paths = {"sim": sim_launches, "adapt": adapt_launches,
+                  "obs_sweep": obs_sweep["launches"],
+                  "obs_profiler": obs_served["profiler"]["launches"],
+                  "obs_controller": obs_controller["launches"]}
 
     cs64, cs32 = cs["float64"], cs["float32"]
     kernels = [{
@@ -2035,7 +2642,8 @@ def main():
                     "src/repro_torch/kernels/csrc/flash_attention_mma.cu",
                     "src/repro_torch/kernels/csrc/flash_attention_f32.cu"],
         "replaces": "src/repro/kernels/flash_attention.py:88",
-        "launches": model_launches("flash_attention"),
+        "launches": sum(served_launches("flash_attention").values()),
+        "launches_by_path": served_launches("flash_attention"),
         "max_abs_err": fa["max_abs_err"],
         "tolerance": fa["tolerance"], "ms": fa["ms"], "plain_ms": fa["plain_ms"],
         "bound_ms": fa["bound_ms"], "bound_by": fa["bound_by"],
@@ -2053,7 +2661,8 @@ def main():
         "name": "cold_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/cold_scan.cu",
         "replaces": "src/repro/kernels/cold_scan.py:83",
-        "launches": sim_launches + adapt_launches, "dtype": "float64",
+        "launches": sum(cold_paths.values()), "launches_by_path": cold_paths,
+        "dtype": "float64",
         "shape": cs["shape"], "max_abs_err": cs["max_abs_err"],
         "tolerance": COLD_SCAN_TOL, "ms": cs64["ms"],
         "plain_ms": cs64["plain_ms"], "parallel_ms": cs64["parallel_ms"],
@@ -2085,7 +2694,8 @@ def main():
         "name": "rmsnorm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
         "replaces": "src/repro/kernels/rmsnorm.py:24",
-        "launches": model_launches("rmsnorm"), "dtype": "bfloat16",
+        "launches": sum(served_launches("rmsnorm").values()),
+        "launches_by_path": served_launches("rmsnorm"), "dtype": "bfloat16",
         "shape": rn["shape"], "max_abs_err": rn["max_abs_err"],
         "tolerance": rn["tolerance"], "ms": rn["ms"], "plain_ms": rn["plain_ms"],
         "bound_ms": rn["bound_ms"], "bound_by": rn["bound_by"],
@@ -2099,8 +2709,13 @@ def main():
                    for k, r in rn["decode"].items()},
     }]
     for m in served:
-        log(json.dumps({"serving": m}))
+        log(json.dumps({"serving": {k: v for k, v in m.items()
+                                    if k not in ("obs", "profiler", "jobs")}}))
     log(json.dumps({"sim": sim, "adapt": adapt, "cold_scan": cs}))
+    log(json.dumps({"obs": {"sweep": obs_sweep, "serving": obs_served["obs"],
+                            "profiler": obs_served["profiler"],
+                            "controller": obs_controller},
+                    "jobs": obs_served["jobs"]}, default=str))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

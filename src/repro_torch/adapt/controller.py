@@ -393,9 +393,12 @@ class AdaptiveDeployment:
         self.hub = attach(deployment, hub)
         self.tracer = tracer
         if tracer is not None:
-            # the JAX package instruments the wrapped deployment through
-            # repro.obs.instrument here; obs is not ported yet
-            raise NotImplementedError("obs is not ported yet")
+            # same duck-typed hook pattern as telemetry.attach: request
+            # traces come from the wrapped deployment, decision events from
+            # the controller below
+            from repro_torch.obs import instrument
+
+            instrument(deployment, tracer)
         # duck-typed obs.SloTracker: fed every request's end-to-end latency
         # (wall clock, same clock the engine's spans use) so burn-rate
         # breaches can force a re-placement through the controller

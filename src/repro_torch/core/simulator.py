@@ -74,8 +74,11 @@ request stream, seeds, drift, telemetry) and executed by ONE entry point,
                        (torch.Generator) draw contract with spread, within
                        1% on medians/p99 (``tests/test_torch_sim.py``).
                        Runs on ``device="cuda"`` unless the caller passes
-                       ``device="cpu"``; a tracer raises until ``obs``
-                       is ported. ``simulate_placements`` exposes
+                       ``device="cpu"``; with a tracer, sampled requests
+                       of the first seed come back as ``obs`` traces,
+                       rebuilt on the host from the sweep's sampled
+                       arrays (draw-neutral: the totals are the untraced
+                       call's, bit for bit). ``simulate_placements`` exposes
                        the placement axis — ``PlacementScorer`` scores an
                        entire candidate set in one call.
 
@@ -1174,15 +1177,14 @@ class WorkflowSimulator:
         numpy stream). The torch backend is the default: it runs on
         ``device``, the card unless the caller passes ``device="cpu"``, and
         raises without one; the host backends are named to be used and
-        ignore ``device``. A tracer (``spec.tracer`` or the simulator's)
-        raises ``NotImplementedError`` on the torch backend until ``obs`` is
-        ported."""
+        ignore ``device``. With a tracer (``spec.tracer`` or the
+        simulator's), the torch backend rebuilds ``tracer.sample`` evenly
+        spaced requests of the first seed as ``obs`` traces."""
         if backend == "torch":
-            if spec.tracer is not None or self.tracer is not None:
-                raise NotImplementedError("obs is not ported yet")
-            totals = self.simulate_placements(spec, [spec.steps], device=device)[
-                :, 0, :
-            ]
+            tracer = spec.tracer if spec.tracer is not None else self.tracer
+            totals = self.simulate_placements(
+                spec, [spec.steps], device=device, _tracer=tracer
+            )[:, 0, :]
             return totals if spec.seeds is not None else totals[0]
         if backend not in _BACKENDS:
             raise ValueError(
@@ -1257,7 +1259,8 @@ class WorkflowSimulator:
         return out
 
     def simulate_placements(
-        self, spec: ExperimentSpec, placements, dtype=np.float64, device="cuda"
+        self, spec: ExperimentSpec, placements, dtype=np.float64, device="cuda",
+        _tracer=None,
     ) -> np.ndarray:
         """Score a whole candidate placement set under common random
         numbers in ONE torch sweep on ``device``: ``placements`` is a
@@ -1271,7 +1274,13 @@ class WorkflowSimulator:
         halves memory traffic for big sweeps at ~1e-7 relative cost.
 
         ``device`` defaults to the card ("cuda") and raises without one;
-        pass ``device="cpu"`` to run the sweep on the host."""
+        pass ``device="cpu"`` to run the sweep on the host.
+
+        ``_tracer`` is the private hand-off from ``simulate(backend="torch",
+        tracer=...)``: sampled per-request ``obs`` traces are rebuilt
+        host-side for the FIRST seed and FIRST placement (the spec's own
+        steps when called through ``simulate``). Public placement-scoring
+        callers never pass it, so the scorer path stays pure."""
         from repro_torch.core import torchsim  # deferred: torch pays init cost
 
         telemetry = spec.telemetry if spec.telemetry is not None else self.telemetry
@@ -1294,11 +1303,141 @@ class WorkflowSimulator:
         faults = spec.faults if spec.faults is not None else self.faults
         retry = spec.retry if spec.retry is not None else self.retry
         t0s = np.arange(spec.n_requests) * spec.interarrival_s
-        return torchsim.run_batched(
-            self, order, step_sets, preds, succs, t0s, spec.prefetch,
-            list(seeds), drift=drift, dtype=dtype, stream=stream,
-            faults=faults, retry=retry, device=device,
+        if _tracer is None:
+            return torchsim.run_batched(
+                self, order, step_sets, preds, succs, t0s, spec.prefetch,
+                list(seeds), drift=drift, dtype=dtype, stream=stream,
+                faults=faults, retry=retry, device=device,
+            )
+        sample_idx = np.unique(
+            np.linspace(
+                0,
+                max(spec.n_requests - 1, 0),
+                min(getattr(_tracer, "sample", 8) or 0, spec.n_requests),
+            )
+            .round()
+            .astype(int)
         )
+        # the sampled arrays come back to the host in one copy each
+        totals, sampled = torchsim.run_batched(
+            self, order, step_sets, preds, succs, t0s, spec.prefetch,
+            list(seeds), drift=drift, dtype=dtype, sample_idx=sample_idx,
+            stream=stream, faults=faults, retry=retry, device=device,
+        )
+        self._emit_traces_torch(
+            order,
+            step_sets[0],
+            preds,
+            spec.prefetch,
+            t0s,
+            sample_idx,
+            tuple(a[0, 0] for a in sampled),  # first seed, first placement
+            drift,
+            _tracer,
+            seed=seeds[0],
+            stream=stream,
+        )
+        return totals
+
+    def _emit_traces_torch(
+        self, order, steps, preds, prefetch, t0s, sample_idx, sampled,
+        drift, tracer, seed, stream=None,
+    ):
+        """Rebuild ``obs`` traces from the torch sweep's sampled arrays
+        (payload / effective cold / fetch / compute / end, each (V, k) host
+        numpy). The draw-free pieces are recomputed host-side: the poke
+        cascade is ``t0 + depth * msg`` (static hop depths) and the
+        transfer model is deterministic given the endpoints (+ drift
+        scales at the sampled request index) — the exact arrays
+        ``torchsim._build`` feeds the device."""
+        from repro_torch.core import torchsim
+
+        payload_a, cold_a, fetch_a, compute_a, end_a = sampled
+        saved_stream = self.stream
+        self.stream = stream  # _transfer_fl reads it (restored in finally)
+        try:
+            self._emit_traces_torch_inner(
+                torchsim, order, steps, preds, prefetch, t0s, sample_idx,
+                payload_a, cold_a, fetch_a, compute_a, end_a, drift, tracer,
+                seed, stream,
+            )
+        finally:
+            self.stream = saved_stream
+
+    def _emit_traces_torch_inner(
+        self, torchsim, order, steps, preds, prefetch, t0s, sample_idx,
+        payload_a, cold_a, fetch_a, compute_a, end_a, drift, tracer, seed,
+        stream,
+    ):
+        depth = torchsim._poke_depths(order, steps, preds)
+        idx = {v: i for i, v in enumerate(order)}
+        names = [steps[v].name for v in order]
+        dup = len(set(names)) != len(names)
+
+        def label(v):
+            return f"{steps[v].name}@{v}" if dup else steps[v].name
+
+        for j, k in enumerate(np.asarray(sample_idx).tolist()):
+            t0 = float(t0s[k])
+            trace = tracer.begin(
+                name="sim-request",
+                t0=t0,
+                attrs={"backend": "torch", "request_k": int(k), "seed": int(seed)},
+            )
+            t_sink = t0
+            for i, v in enumerate(order):
+                step = steps[v]
+                poked = prefetch and math.isfinite(depth[i])
+                poke_t = float(t0 + depth[i] * self.msg) if poked else None
+                cold = float(cold_a[i, j])
+                fetch = float(fetch_a[i, j])
+                compute = float(compute_a[i, j])
+                end_k = float(end_a[i, j])
+                pay_k = float(payload_a[i, j])
+                p0 = poke_t if poked else pay_k
+                p1 = p0 + cold + fetch
+                if stream is None:
+                    start_k = end_k - compute
+                else:
+                    # end may carry a streaming tail past start + compute
+                    start_k = max(pay_k, p1) if poked else p1
+                payload_t, transfer_s = {}, {}
+                for u in preds[v]:
+                    tr = self._pair_transfer_fl(steps[u], step)[0]
+                    if drift is not None:
+                        tr *= max(
+                            drift.scales(k, steps[u].platform)[1],
+                            drift.scales(k, step.platform)[1],
+                        )
+                    tr = float(tr)  # attrs hold Python numbers only
+                    payload_t[label(u)] = float(end_a[idx[u], j]) + tr
+                    transfer_s[label(u)] = tr
+                attrs = {
+                    "node": label(v),
+                    "platform": step.platform,
+                    "preds": [label(u) for u in preds[v]],
+                    "poke_t": poke_t,
+                    "prepare_t0": p0,
+                    "prepare_t1": p1,
+                    "cold_s": cold,
+                    "fetch_s": fetch,
+                    "compute_t0": start_k,
+                    "compute_s": compute,
+                    "payload_t": payload_t,
+                    "transfer_s": transfer_s,
+                }
+                if stream is not None:
+                    attrs["stream_wait_t0"] = start_k + compute
+                    attrs["stream_wait_t1"] = end_k
+                node_span = trace.span(
+                    label(v),
+                    "node",
+                    t_start=min(p0, pay_k),
+                    attrs=attrs,
+                )
+                node_span.end(end_k)
+                t_sink = max(t_sink, end_k)
+            tracer.finish(trace, t_end=t_sink)
 
     # -- legacy wrappers (paper: 1 req/s for 30 min) ----------------------------
     def _shim_backend(self, vectorized, backend, default):

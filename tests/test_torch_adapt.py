@@ -19,6 +19,7 @@ from repro_torch.core.prewarm import TensorSpec
 from repro_torch.core.shipping import PlacementCosts
 from repro_torch.dag import DagDeployment, DagSpec, DagStep
 from repro_torch.kernels.cold_scan import cold_scan
+from repro_torch.obs import Tracer
 
 CPU = "cpu"
 
@@ -173,12 +174,20 @@ def test_adaptive_deployment_rejects_undeployed_candidates():
 
 
 def test_adaptive_deployment_tracer_is_not_ported():
-    """The JAX package instruments the deployment through repro.obs here;
-    the port raises rather than dropping the tracer silently."""
+    """A tracer given to ``AdaptiveDeployment`` is instrumented into the
+    wrapped deployment's engine, compile cache, prefetcher and store, as
+    ``repro.obs.instrument`` does in the JAX package (the name dates from
+    before ``obs`` was ported, when this raised); requests then leave
+    traces with every node."""
+    tracer = Tracer()
     with deploy_chain(DagDeployment(make_registry()), []) as engine:
-        with pytest.raises(NotImplementedError, match="obs"):
-            AdaptiveDeployment(engine, chain_spec(), {"work": ["pA", "pB"]},
-                               fallback_costs(), tracer=object())
+        adapt = AdaptiveDeployment(engine, chain_spec(), {"work": ["pA", "pB"]},
+                                   fallback_costs(), tracer=tracer)
+        assert adapt.tracer is tracer and adapt.controller.tracer is tracer
+        for part in (engine, engine.cache, engine.prefetcher, engine.store):
+            assert part.tracer is tracer
+        assert adapt.run(3).outputs == 6
+    assert set(tracer.last().node_spans()) == {"ingest", "work", "deliver"}
 
 
 @pytest.mark.parametrize("scored", [False, True])

@@ -17,7 +17,7 @@ import repro.core.simulator as J
 import repro.dag.sim as jdsim
 import repro_torch.core.simulator as S
 import repro_torch.dag.sim as tdsim
-from repro.obs import Tracer
+from repro_torch.obs import Tracer
 from repro_torch.core import torchsim
 from repro_torch.kernels.cold_scan import cold_scan
 
@@ -327,19 +327,32 @@ def test_sample_idx_columns_match_totals():
 
 
 def test_torch_tracer_raises_until_obs_is_ported():
-    """The torch backend has no trace emit until ``obs`` is ported: a tracer
-    on the spec or on the simulator raises, never silently dropped."""
+    """The torch backend with a tracer (the name dates from before ``obs``
+    was ported, when this raised): a tracer on the spec and one on the
+    simulator each give the untraced totals bit for bit and ``sample``
+    traces of the first seed, equal to each other; the simulator's own
+    tracer is left in place and the spec's is not kept."""
     sim = S.WorkflowSimulator(S.paper_platforms(), seed=3)
-    spec = S.ExperimentSpec(S.document_workflow_fig4(), n_requests=10, seeds=(0,),
-                            tracer=Tracer(sample=3))
-    cold_scan.launches = 0
-    with pytest.raises(NotImplementedError, match="obs is not ported yet"):
-        sim.simulate(spec, backend="torch", device=CPU)
-    sim.tracer = Tracer(sample=3)
-    with pytest.raises(NotImplementedError, match="obs is not ported yet"):
-        sim.simulate(replace(spec, tracer=None), backend="torch", device=CPU)
-    sim.tracer = None
-    assert sim.simulate(replace(spec, tracer=None), device=CPU).shape == (1, 10)
+    spec = S.ExperimentSpec(S.document_workflow_fig4(), n_requests=10, seeds=(0, 1))
+    off = sim.simulate(spec, backend="torch", device=CPU)
+    on_spec = Tracer(sample=3)
+    got = sim.simulate(replace(spec, tracer=on_spec), backend="torch", device=CPU)
+    assert np.array_equal(got, off) and sim.tracer is None
+    sim.tracer = on_sim = Tracer(sample=3)
+    assert np.array_equal(sim.simulate(spec, backend="torch", device=CPU), off)
+    assert sim.tracer is on_sim
+    for tracer in (on_spec, on_sim):
+        traces = tracer.traces()
+        assert [t.root.attrs["request_k"] for t in traces] == [0, 4, 9]
+        assert all(t.root.attrs["backend"] == "torch" for t in traces)
+        for t in traces:
+            assert set(t.node_spans()) == {"check", "virus", "ocr", "e_mail"}
+            assert t.total_s == pytest.approx(off[0, t.root.attrs["request_k"]],
+                                              rel=1e-12)
+    assert [[(n, s.t_start, s.t_end) for n, s in sorted(t.node_spans().items())]
+            for t in on_spec.traces()] == [
+        [(n, s.t_start, s.t_end) for n, s in sorted(t.node_spans().items())]
+        for t in on_sim.traces()]
 
 
 # ---------------------------------------------------------------------------
