@@ -10,14 +10,16 @@ no result):
               registers and spill stores of every kernel function
   3. kernels  each model kernel against its plain PyTorch version on the
               card, at the serving path's shapes and edge cases:
-              flash_attention (the three served prefill shapes of qwen3,
-              granite and recurrentgemma, timed; recurrentgemma's local
+              flash_attention (every served model's prefill shape, timed:
+              qwen3-1.7b, granite, recurrentgemma's local layers,
+              llama3.2-3b, gemma3-27b's local layers, qwen3-32b, moonshot,
+              llava-next-34b's 1152 patches + 512 tokens, hubert-xlarge's
+              d = 80 non-causal frames; recurrentgemma's and gemma3's local
               layers past the window; the wgmma kernel's edges: T = 1,
               T < 64, T != S, GQA 3 and 16 with ragged T, B = 2 with a
               ragged S, a window inside one kv tile, long kv walks with
               ragged T; every other head dim the Pallas kernel takes, d =
-              48-240 on the mma.sync and float32 kernels, and
-              hubert-xlarge's d = 80 non-causal shape, timed), ssd_scan (the JAX
+              48-240 on the mma.sync and float32 kernels), ssd_scan (the JAX
               package's kernel-test cases in f32 and bf16, the serving
               dtypes, Q == L, 4 chunks, a chunk of 96 that fills no whole
               C·Bᵀ tile), rglru_scan (the kernel-test cases, T = 300,
@@ -30,14 +32,27 @@ no result):
               (F.rms_norm for rmsnorm) or a yardstick (torch.cumsum for
               rglru_scan), and the bound; rmsnorm also at the decode
               shapes (1 and 4 rows of 1024, 1536, 2048, 4096 and qwen3's
-              4-slot qk-norm, 64 x 128)
-  Phases 4-7 run for qwen3-1.7b, mamba2-370m, recurrentgemma-9b and
-  granite-moe-3b-a800m in turn, each at full width (random bf16 weights
-  from seed 0), each model's weights freed before the next loads:
+              4-slot qk-norm, 64 x 128); then the widths of the models
+              served since (1280-7168) at prefill and decode, and gemma3's
+              and qwen3-32b's qk-norm rows
+  Phases 4-7 run for the ten configs in turn (SERVED: qwen3-1.7b,
+  mamba2-370m, recurrentgemma-9b, granite-moe-3b-a800m, llama3.2-3b,
+  gemma3-27b, qwen3-32b, moonshot-v1-16b-a3b, llava-next-34b,
+  hubert-xlarge), each at full width and depth, random weights from seed
+  0 drawn in their serving dtypes (M.init_serving_params; the draw's peak
+  allocation gated at the serving bytes + the largest float32 piece + 1
+  GB), the card's peak allocation logged after each phase, each model's
+  weights freed before the next loads:
   4. serving  3 requests through the federated prefill -> decode workflow
               (Deployment over two platforms, caches shipped through the
-              object store); the decode step is pre-warmed by the poke
-  5. batching the same model under ServingEngine's continuous batching;
+              object store); the decode step is pre-warmed by the poke.
+              llava-next-34b's requests carry 1152 patch embeddings and
+              hubert-xlarge's 512 frames as a step's data dependency in the
+              store: a client ingest step pokes prefill (encode), whose
+              prefetch copies them to the card, checked bit-exact; hubert,
+              an encoder, runs ingest -> encode and no decode
+  5. batching the same model (a decoder) under ServingEngine's continuous
+              batching of token prompts;
               every kernel counter is set to 0 before phase 4 and read
               after phase 5: each kernel launches once per layer of its
               block kind per prefill, and rmsnorm once per norm per forward
@@ -48,16 +63,21 @@ no result):
               prefill logits, in bf16 (bound: 2e-2 of the largest logit,
               or twice the plain path's own move under an f32-rounding-
               sized perturbation of its scans' and norms' outputs,
-              whichever is larger) and in float32 (1e-4), granite's plain
-              path on the kernel path's experts; for
-              recurrentgemma-9b a 2500-token prompt past its 2048-token
-              window, then 8 decode steps through the ring buffers, kernel
-              against plain path at every step; the prefetcher's
-              side-stream copy to the card, bit-exact
-  7. profile  torch.profiler over one warm prefill and 8 decode steps:
-              device busy share, device kernels per prefill and per decode
-              step, the kernels that take the device time and the ops that
-              launched them, the port's own kernels by name; then the same
+              whichever is larger) at full depth and in float32 (1e-4),
+              cut in depth to the first cycle of block_pattern (2 layers
+              for a one-kind pattern) at full width where a float32 copy
+              would not fit beside the weights, an MoE's plain path on the
+              kernel path's experts; llava's prefill takes its patches,
+              hubert's its frames; for recurrentgemma-9b and gemma3-27b a
+              2500-token prompt past the window, then 8 decode steps
+              through every local layer's ring buffer, kernel against
+              plain path at every step; the prefetcher's side-stream copy
+              to the card, bit-exact
+  7. profile  torch.profiler over one warm prefill and (a decoder) 8
+              decode steps: device busy share, device kernels per prefill
+              and per decode step, the kernels that take the device time
+              and the ops that launched them, the port's own kernels by
+              name; then, for the first four models only, the same
               warm prefill and 4 decode steps on the host clock, in turns,
               with the norms through the rmsnorm kernel and through the
               plain version, and with the residual adds and mamba2's gate
@@ -112,7 +132,7 @@ no result):
               dedups, a job timed out short of one decode dead-letters with
               status "timeout"; exact kernel launches
 Then one JSON line describing every kernel (launches counted over the main
-paths: serving and batching of the four models and phases 11 (b) and 12
+paths: serving and batching of the ten models and phases 11 (b) and 12
 for flash_attention, ssd_scan, rglru_scan and rmsnorm, the simulator, the
 recomposition and phase 11's (a, c, d) for cold_scan), the card's name and
 power limit, and the last line {"ok": true, "device": {...}}.
@@ -130,6 +150,7 @@ from __future__ import annotations
 import gc
 import itertools
 import json
+import math
 import os
 import re
 import statistics
@@ -177,6 +198,7 @@ from repro_torch.models import griffin as GRIFFIN  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import ssm as SSM  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.models.params import ParamDef  # noqa: E402
 from repro_torch.models.transformer import _is_spec, cache_defs, cast_params  # noqa: E402
 from repro_torch.models.tree import tree_leaves, tree_map  # noqa: E402
 from repro_torch.obs import (MetricsRegistry, SloSpec, SloTracker,  # noqa: E402
@@ -191,6 +213,8 @@ TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 MAX_LEN = 1024
 NEW_TOKENS = 16
 SERVE_PROMPTS = (512, 300, 512)  # federated requests: cold, then warm
+ENCODER_FRAMES = 512  # hubert-xlarge: frames of a request (a ~10 s clip)
+INIT_SLACK = 1e9  # the init peak's allowance beyond its two named parts
 BATCH_PROMPTS = (256, 512)  # continuous batching: prompt lengths drawn here
 KERNELS = ("flash_attention", "flash_attention_mma", "flash_attention_f32",
            "cold_scan", "ssd_scan", "rglru_scan", "rmsnorm")  # the sources, one nvcc each
@@ -434,19 +458,36 @@ def phase_tile_cost() -> dict:
             for d, H, K in ((64, 16, 8), (128, 16, 8), (256, 16, 1))}
 
 
-FLASH_SERVING = {  # (B, T, S, H, K, d, window) of a 512-token prefill
-    "qwen3-1.7b": (1, 512, 512, 16, 8, 128, None),
-    "granite-moe-3b-a800m": (1, 512, 512, 24, 8, 64, None),
-    "recurrentgemma-9b": (1, 512, 512, 16, 1, 256, 2048),
+FLASH_SERVING = {  # (B, T, S, H, K, d, window, causal) of a 512-token prefill
+    "qwen3-1.7b": (1, 512, 512, 16, 8, 128, None, True),
+    "granite-moe-3b-a800m": (1, 512, 512, 24, 8, 64, None, True),
+    "recurrentgemma-9b": (1, 512, 512, 16, 1, 256, 2048, True),
+    "llama3.2-3b": (1, 512, 512, 24, 8, 128, None, True),
+    # the local layers; at 512 tokens the 1024 window does not bind, so the
+    # global layers compute the same function
+    "gemma3-27b": (1, 512, 512, 32, 16, 128, 1024, True),
+    "qwen3-32b": (1, 512, 512, 64, 8, 128, None, True),
+    "moonshot-v1-16b-a3b": (1, 512, 512, 16, 16, 128, None, True),
+    # 1152 patches in front of the 512-token prompt
+    "llava-next-34b": (1, 1664, 1664, 56, 8, 128, None, True),
+    # an encoder: 512 frames, non-causal, d = 80 on mma.sync
+    "hubert-xlarge": (1, 512, 512, 16, 16, 80, None, False),
 }
+FLASH_LABELS = {"qwen3-1.7b": "(a) main path", "recurrentgemma-9b": "(l) local layer",
+                "granite-moe-3b-a800m": "(n) granite prefill",
+                "hubert-xlarge": "(x) hubert-xlarge"}
 
 
 def phase_kernels() -> dict:
-    """flash_attention: (a), (l), (n) are the served models' prefill shapes
-    (512-token prompt) of qwen3-1.7b, recurrentgemma-9b's local layers
-    (MQA, d=256, window 2048, which does not bind at 512, so the library
-    call with is_causal is the same function) and granite-moe-3b-a800m (GQA
-    24/8, d=64), timed; (b) qwen3's 300-token prompt; (c), (d) GQA with a
+    """flash_attention: every served model's prefill shape (FLASH_SERVING,
+    a 512-token prompt), timed beside scaled_dot_product_attention: (a)
+    qwen3-1.7b, (l) recurrentgemma-9b's local layers (MQA, d=256, window
+    2048, which does not bind at 512, so the library call with is_causal is
+    the same function), (n) granite-moe-3b-a800m (GQA 24/8, d=64), (x)
+    hubert-xlarge (d = 80, 16/16 heads, non-causal, 512 frames), and (z)
+    llama3.2-3b (24/8), gemma3-27b's local layers (32/16, window 1024),
+    qwen3-32b (64/8), moonshot-v1-16b-a3b (16/16) and llava-next-34b (56/8,
+    GQA 7, 1152 patches + 512 tokens); (b) qwen3's 300-token prompt; (c), (d) GQA with a
     window and MQA with T != S, in float32; (e)-(k) the other head_dims of
     both dtypes, ragged lengths and windows with and without causality;
     (m) recurrentgemma past its window; (o)-(w) the wgmma kernel's edges in
@@ -454,17 +495,14 @@ def phase_kernels() -> dict:
     T, B = 2 with S no multiple of the kv tile, a window inside one kv
     tile, and 16 and 11 q tiles a head with ragged T (long kv walks); (y)
     every other head dim the Pallas kernel takes (a multiple of 16 up to
-    256) on the mma.sync kernel and in float32; (x) hubert-xlarge's
-    attention (d = 80, 16/16 heads, non-causal, a 512-frame input), timed
-    beside scaled_dot_product_attention."""
+    256) on the mma.sync kernel and in float32; (m2) gemma3-27b's local
+    layers past their window."""
     bf16, f32 = torch.bfloat16, torch.float32
     shapes = {}
-    for label, arch, seed in (("(a) main path", "qwen3-1.7b", 1),
-                              ("(l) local layer", "recurrentgemma-9b", 12),
-                              ("(n) granite prefill", "granite-moe-3b-a800m", 14)):
-        B, T, S, H, K, d, window = FLASH_SERVING[arch]
-        shapes[arch] = flash_case(label, B, T, S, H, K, d, bf16, True, window,
-                                  seed=seed, timed=True)
+    for seed, (arch, (B, T, S, H, K, d, window, causal)) in enumerate(
+            FLASH_SERVING.items(), start=80):
+        shapes[arch] = flash_case(FLASH_LABELS.get(arch, f"(z) {arch}"), B, T, S, H,
+                                  K, d, bf16, causal, window, seed=seed, timed=True)
     cases = (("(b) ragged", 1, 300, 300, 16, 8, 128, bf16, True, None, 2),
              ("(c) GQA 4:1 window 96", 2, 256, 256, 8, 2, 64, f32, True, 96, 3),
              ("(d) MQA T!=S", 1, 128, 256, 4, 1, 128, f32, True, None, 4),
@@ -478,6 +516,8 @@ def phase_kernels() -> dict:
              ("(k) ragged", 1, 65, 65, 4, 2, 32, f32, True, None, 11),
              # recurrentgemma-9b's local layers past the window
              ("(m) window binds", 1, 2500, 2500, 16, 1, 256, bf16, True, 2048, 13),
+             ("(m2) gemma3 window binds", 1, 2500, 2500, 32, 16, 128, bf16, True,
+              1024, 27),
              # the wgmma kernel's edges
              ("(o) T = 1", 2, 1, 1, 4, 4, 64, bf16, True, None, 15),
              ("(o) T = 1, S = 300", 1, 1, 300, 8, 2, 128, bf16, False, None, 16),
@@ -500,8 +540,6 @@ def phase_kernels() -> dict:
               ("(y) d=48 f32", 1, 200, 200, 4, 2, 48, f32, True, None, 65),
               ("(y) d=80 f32 non-causal", 1, 160, 160, 4, 4, 80, f32, False, None, 66),
               ("(y) d=240 f32 window", 1, 100, 100, 2, 1, 240, f32, True, 33, 67))
-    shapes["hubert-xlarge"] = flash_case("(x) hubert-xlarge", 1, 512, 512, 16, 16, 80,
-                                         bf16, False, None, seed=26, timed=True)
     worst = 0.0
     for *args, seed in cases:
         worst = max(worst, flash_case(*args, seed=seed)["max_abs_err"])
@@ -774,6 +812,14 @@ RMSNORM_DECODE = ((1, 1024), (4, 1024), (1, 1536), (4, 1536), (1, 2048), (4, 204
                   (1, 4096), (4, 4096))  # a decode step's rows: 1 or 4 slots
 _QWEN3, _MAMBA2 = get_config("qwen3-1.7b"), get_config("mamba2-370m")
 QK_NORM_DECODE = (4 * _QWEN3.num_heads, _QWEN3.head_dim)  # q/k norm at 4 slots
+# the widths of the models served since: a 512-token prefill's (512 frames'
+# for hubert-xlarge) rows of d_model, each with and without the add
+RMSNORM_SERVING = {arch: get_config(arch).d_model for arch in (
+    "hubert-xlarge", "llama3.2-3b", "qwen3-32b", "gemma3-27b", "llava-next-34b")}
+RMSNORM_DECODE_SERVING = tuple((rows, D) for D in (3072, 5120, 5376, 7168)
+                               for rows in (1, 4))
+QK_NORM_SERVING = {arch: get_config(arch).num_heads for arch in ("gemma3-27b",
+                                                                  "qwen3-32b")}
 MAMBA2_Z_WIDTH = (2 * _MAMBA2.d_inner + 2 * _MAMBA2.ssm_state
                   + _MAMBA2.ssm_heads)  # its in_proj output: z, x, B, C, dt
 
@@ -788,7 +834,11 @@ def phase_rmsnorm() -> dict:
     misaligned operands and mamba2's z as a column slice. Timed: the
     prefill shape with each prologue, and the decode shapes (1 and 4 rows
     at each served width, with no prologue and with the add; mamba2's gate
-    at 2048; qwen3's 4-slot qk-norm). Tolerances as tests/test_kernels.py."""
+    at 2048; qwen3's 4-slot qk-norm). Then each width served since
+    (RMSNORM_SERVING: 1280-7168) at its prefill rows with no prologue and
+    with the add, and the decoders' at 1 and 4 rows, timed; gemma3-27b's
+    and qwen3-32b's qk-norm rows (32 and 64 heads of 128) at prefill,
+    checked, and at 4 slots, timed. Tolerances as tests/test_kernels.py."""
     f32, bf16 = torch.float32, torch.bfloat16
     g = torch.Generator(device=DEV).manual_seed(40)
     worst = 0.0
@@ -853,33 +903,93 @@ def phase_rmsnorm() -> dict:
             b_width=MAMBA2_Z_WIDTH, **short)
     decode["none 64x128"] = rmsnorm_case(g, "(qwen3 qk-norm decode)", QK_NORM_DECODE,
                                          bf16, bf16, **short)
+    shapes = {}
+    for arch, D in RMSNORM_SERVING.items():
+        shapes[arch] = {kind: rmsnorm_case(g, f"({arch} prefill)", (512, D), bf16, bf16,
+                                           kind=kind, **short)
+                        for kind in ("none", "add")}
+    for rows, D in RMSNORM_DECODE_SERVING:
+        for kind in ("none", "add"):
+            decode[f"{kind} {rows}x{D}"] = rmsnorm_case(g, "(decode)", (rows, D), bf16,
+                                                        bf16, kind=kind, **short)
+    for arch, H in QK_NORM_SERVING.items():
+        worst = max(worst, rmsnorm_case(g, f"({arch} qk-norm)", (1, 512, H, 128), bf16,
+                                        bf16)["max_abs_err"])
+        decode[f"none {4 * H}x128"] = rmsnorm_case(g, f"({arch} qk-norm decode)",
+                                                   (4 * H, 128), bf16, bf16, **short)
     main["decode"] = decode
+    main["shapes"] = shapes
     main["max_abs_err"] = max(
         [worst, main["max_abs_err"]] + [r["max_abs_err"] for r in decode.values()]
-        + [r["max_abs_err"] for r in main["prologues"].values()])
+        + [r["max_abs_err"] for r in main["prologues"].values()]
+        + [r["max_abs_err"] for by in shapes.values() for r in by.values()])
     return main
 
 
 # ---------------------------------------------------------------------------
 # phase 4: federated prefill -> decode at full width
 # ---------------------------------------------------------------------------
+def init_bounds(cfg) -> tuple:
+    """(serving bytes, the largest float32 piece the serving init draws at
+    once: one layer slice of a stacked leaf, or an unstacked leaf whole),
+    counted from the parameter definitions."""
+    esize = _esize(getattr(torch, cfg.compute_dtype))
+    total = piece = 0
+    for d in tree_leaves(M.param_defs(cfg), is_leaf=lambda x: isinstance(x, ParamDef)):
+        n = math.prod(d.shape)
+        total += n * (esize if len(d.shape) >= 2 else 4)
+        if d.init not in ("zeros", "ones"):
+            piece = max(piece, 4 * (n // d.shape[0] if d.axes[0] == "layers" else n))
+    return total, piece
+
+
 def make_params(cfg):
-    t0 = time.perf_counter()
-    params = M.init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
-                           device=DEV)
-    params = cast_params(cfg, params)  # once: serving never updates weights
+    """Random weights from seed 0, drawn in their serving dtypes
+    (``M.init_serving_params``: bf16 matrices and stacked vectors, float32
+    vectors). The draw's peak allocation is gated at the serving bytes plus
+    the largest float32 piece plus INIT_SLACK. Returns (params, record)."""
+    gc.collect()
     torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(DEV)
+    torch.cuda.reset_peak_memory_stats(DEV)
+    t0 = time.perf_counter()
+    params = M.init_serving_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                                   device=DEV)
     sync()
+    init_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(DEV) - base
+    want, piece = init_bounds(cfg)
     n = sum(t.numel() for t in tree_leaves(params))
     nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    bound = want + piece + INIT_SLACK
     log(f"[serving] {cfg.name}: {cfg.num_layers} layers d_model={cfg.d_model} "
         f"heads={cfg.num_heads}/{cfg.num_kv_heads} head_dim={cfg.head_dim} "
         f"d_ff={cfg.d_ff} vocab={cfg.vocab_size}"
         f"{f' experts={cfg.num_experts} top_k={cfg.top_k}' if cfg.num_experts else ''}"
         f": {n / 1e9:.3f} B params, "
-        f"{nbytes / 1e9:.2f} GB {cfg.compute_dtype} on {DEV} "
-        f"({time.perf_counter() - t0:.1f} s)")
-    return params
+        f"{nbytes / 1e9:.2f} GB {cfg.compute_dtype} on {DEV} ({init_s:.1f} s)")
+    log(f"[memory] {cfg.name} init: peak {peak / 1e9:.3f} GB over the "
+        f"{base / 1e9:.3f} GB allocated before; gate {bound / 1e9:.3f} GB = "
+        f"serving {want / 1e9:.3f} + largest f32 piece {piece / 1e9:.3f} + "
+        f"{INIT_SLACK / 1e9:g}; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated(DEV) / 1e9:.3f} GB")
+    if nbytes != want:
+        raise AssertionError(f"{cfg.name}: {nbytes} serving bytes, the definitions "
+                             f"give {want}")
+    if peak > bound:
+        raise AssertionError(f"{cfg.name}: init peak {peak} bytes > {bound}")
+    return params, {"params": n, "bytes": nbytes, "init_s": init_s,
+                    "peak_bytes": peak, "gate_bytes": bound, "f32_piece_bytes": piece}
+
+
+def memory_mark(record, name):
+    """Log and record the card's peak allocation since the last mark, then
+    start the next phase's peak."""
+    peak = torch.cuda.max_memory_allocated(DEV)
+    record[name] = peak
+    log(f"[memory] {name}: max_memory_allocated {peak / 1e9:.3f} GB (now "
+        f"{torch.cuda.memory_allocated(DEV) / 1e9:.3f} GB)")
+    torch.cuda.reset_peak_memory_stats(DEV)
 
 
 def greedy(logits) -> int:
@@ -894,11 +1004,50 @@ SERVE_WF = WorkflowSpec((StepSpec("prefill", "prefill-pod"),
 
 def serving_registry():
     reg = PlatformRegistry()
+    reg.register(Platform("client", "us-east", kind="edge", native_prefetch=True,
+                          device="cpu"))
     reg.register(Platform("prefill-pod", "us-east", native_prefetch=True,
                           device=str(DEV)))
     reg.register(Platform("decode-pod", "us-west", native_prefetch=True,
                           device=str(DEV)))
     return reg
+
+
+def serve_len(cfg) -> int:
+    """A federated request's cache capacity: MAX_LEN behind llava's patches."""
+    return MAX_LEN + (cfg.num_patches if cfg.input_kind == "tokens+patches" else 0)
+
+
+def request_data(cfg, i):
+    """(DataRef, host bf16 tensor) of request i's data dependency, from a
+    numpy seed: llava's (num_patches, d_model) patch embeddings, hubert's
+    (ENCODER_FRAMES, d_model) frames; None for a model of tokens alone.
+    The key's first part names the prefill input ("patches/0")."""
+    if cfg.input_kind == "tokens+patches":
+        kind, n = "patches", cfg.num_patches
+    elif cfg.input_kind == "frames":
+        kind, n = "frames", ENCODER_FRAMES
+    else:
+        return None
+    x = np.random.default_rng(100 + i).standard_normal((n, cfg.d_model),
+                                                        dtype=np.float32)
+    return DataRef(f"{kind}/{i}", "us-east"), torch.from_numpy(x).to(torch.bfloat16)
+
+
+def serve_spec(cfg, ref):
+    """A request's workflow. Tokens alone: prefill -> decode (SERVE_WF).
+    With a data dependency ``ref`` the client's ingest step comes first:
+    its start pokes the next step, which pre-warms and pre-fetches ``ref``
+    onto the card while ingest runs; then prefill -> decode (llava, the
+    patches) or encode (hubert, the frames)."""
+    if ref is None:
+        return SERVE_WF
+    ingest = StepSpec("ingest", "client")
+    if not cfg.supports_decode:
+        return WorkflowSpec((ingest, StepSpec("encode", "prefill-pod", (ref,))),
+                            "encode")
+    return WorkflowSpec((ingest, StepSpec("prefill", "prefill-pod", (ref,)),
+                         StepSpec("decode", "decode-pod")), "serve")
 
 
 class InFlight:
@@ -928,28 +1077,48 @@ class InFlight:
                                      f"after {timeout_s} s")
 
 
-def deploy_serving(dep, cfg, params) -> InFlight:
-    """Deploy the federated workflow's two steps on ``dep``: prefill ships
-    its caches through the object store (one key a call), decode fetches
-    them per call, so two attempts of one decode (a retry, a hedge) never
-    share a cache tensor, and runs NEW_TOKENS - 1 greedy steps. Both
-    handlers end in a device-to-host copy (``greedy``): they return host
-    values, so a traced compute span closes after the device work."""
+def deploy_serving(dep, cfg, params, seen=None) -> InFlight:
+    """Deploy the federated workflow's steps on ``dep``: prefill ships its
+    caches through the object store (one key a call), decode fetches them
+    per call, so two attempts of one decode (a retry, a hedge) never share
+    a cache tensor, and runs NEW_TOKENS - 1 greedy steps. A model with a
+    data dependency also gets the client's ingest step, which forwards the
+    payload; its prefill (or hubert's encode) takes the pre-fetched tensor
+    from ``data`` and keeps it in ``seen`` under its key. Every handler
+    ends in a device-to-host copy (``greedy``): they return host values, so
+    a traced compute span closes after the device work."""
     dep.store.network.set_link("us-east", "us-west", 0.02, 200e6)
     V = cfg.vocab_size
     keys = itertools.count()
     inflight = InFlight()
+    seen = {} if seen is None else seen
+
+    def data_batch(data):
+        if not data:
+            return {}
+        (key, x), = data.items()
+        seen[key] = x
+        return {key.split("/")[0]: x[None]}
+
+    def encode_fn(payload, data):
+        logits, caches = M.prefill(cfg, params, data_batch(data))
+        if tuple(logits.shape) != (1, V) or caches != {}:
+            raise AssertionError(f"encoder logits {tuple(logits.shape)}, caches "
+                                 f"{type(caches)}")
+        return {"label": greedy(logits), "max_abs_logit": logits.abs().max().item()}
 
     def prefill_fn(payload, data):
         tokens = torch.as_tensor(payload, device=DEV)[None]
-        logits, caches = M.prefill(cfg, params, {"tokens": tokens})
+        batch = {"tokens": tokens, **data_batch(data)}
+        logits, caches = M.prefill(cfg, params, batch)
         if tuple(logits.shape) != (1, V):
             raise AssertionError(f"prefill logits shape {tuple(logits.shape)}")
         tok = greedy(logits)
-        caches = pad_cache(caches, MAX_LEN, len(payload), cfg=cfg)
+        pos = len(payload) + (cfg.num_patches if "patches" in batch else 0)
+        caches = pad_cache(caches, serve_len(cfg), pos, cfg=cfg)
         key = f"kv/{next(keys)}"
         dep.store.put(key, tree_map(lambda t: t.cpu(), caches), region="us-east")
-        return {"first_tok": tok, "kv_key": key, "pos": len(payload)}
+        return {"first_tok": tok, "kv_key": key, "pos": pos}
 
     def decode_step(token, caches, cur):
         return M.decode_step(cfg, params, token, caches, cur)
@@ -967,10 +1136,15 @@ def deploy_serving(dep, cfg, params) -> InFlight:
             cur += 1
         return toks
 
+    if cfg.input_kind != "tokens":
+        dep.deploy("ingest", inflight.track(lambda payload, data: payload), ["client"])
+    if not cfg.supports_decode:
+        dep.deploy("encode", inflight.track(encode_fn), ["prefill-pod"])
+        return inflight
     dec_specs = (TensorSpec((1, 1), torch.int32, str(DEV)),
                  tree_map(lambda d: TensorSpec(d.shape, getattr(torch, d.dtype),
                                                str(DEV)),
-                          cache_defs(cfg, 1, MAX_LEN), is_leaf=_is_spec),
+                          cache_defs(cfg, 1, serve_len(cfg)), is_leaf=_is_spec),
                  0)
     dep.deploy("prefill", inflight.track(prefill_fn), ["prefill-pod"])
     dep.deploy("decode", inflight.track(decode_fn), ["decode-pod"],
@@ -983,21 +1157,46 @@ def check_tokens(toks, V, what):
         raise AssertionError(f"{what}: bad tokens {toks}")
 
 
+def check_encoded(out, V, what):
+    if not (0 <= out["label"] < V and math.isfinite(out["max_abs_logit"])):
+        raise AssertionError(f"{what}: bad encoder output {out}")
+
+
 def phase_federated(cfg, params, prompts):
+    """The federated workflow, one request per prompt (cold, then warm). A
+    model with a data dependency gets each request's tensor put in the
+    store (us-east) and named in its spec; the tensors its steps received
+    must be on the card and equal the stored ones bit for bit. hubert's
+    requests are its prompts' indices: the frames are the input."""
     V = cfg.vocab_size
+    seen, stored = {}, {}
     with Deployment(serving_registry()) as dep:
-        deploy_serving(dep, cfg, params)
+        deploy_serving(dep, cfg, params, seen)
         results = []
         for i, prompt in enumerate(prompts):
-            r = dep.run(SERVE_WF, prompt)
-            check_tokens(r.outputs, V, f"request {i}")
+            ref = None
+            data = request_data(cfg, i)
+            if data is not None:
+                ref, host = data
+                dep.store.put(ref.key, host, region=ref.store_region)
+                stored[ref.key] = host
+            spec = serve_spec(cfg, ref)
+            r = dep.run(spec, prompt if cfg.supports_decode else i)
+            if cfg.supports_decode:
+                check_tokens(r.outputs, V, f"request {i}")
+            else:
+                check_encoded(r.outputs, V, f"request {i}")
             tl = " | ".join(
                 f"{node}: warm {t['warm_s'] * 1e3:.1f} ms fetch "
                 f"{t['fetch_s'] * 1e3:.1f} ms compute {t['compute_s'] * 1e3:.1f} ms"
                 for node, t in r.timeline.items())
-            log(f"[serving] request {i} ({'cold' if i == 0 else 'warm'}) prompt "
-                f"{len(prompt)}: total_s={r.total_s:.4f} | {tl}")
-            results.append({"prompt": len(prompt), "total_s": r.total_s,
+            what = (f"prompt {len(prompt)}" if cfg.supports_decode else "")
+            if ref is not None:
+                what += f" {'+ ' if what else ''}{ref.key} {tuple(stored[ref.key].shape)}"
+            log(f"[serving] request {i} ({'cold' if i == 0 else 'warm'}) {what}: "
+                f"total_s={r.total_s:.4f} | {tl}")
+            results.append({"prompt": len(prompt) if cfg.supports_decode else 0,
+                            "data": ref.key if ref else None, "total_s": r.total_s,
                             "timeline": {n: {k: v for k, v in t.items()
                                              if isinstance(v, float)}
                                          for n, t in r.timeline.items()}})
@@ -1007,8 +1206,17 @@ def phase_federated(cfg, params, prompts):
         f"misses={comp['misses']} hidden_compile_s={comp['hidden_compile_s']:.3f}; "
         f"store puts={rep['store']['puts']} gets={rep['store']['gets']} "
         f"bytes_in={rep['store']['bytes_in']}")
-    if comp["prewarms"] != 1 or comp["misses"] != 0:
+    if cfg.supports_decode and (comp["prewarms"] != 1 or comp["misses"] != 0):
         raise AssertionError(f"decode was not pre-warmed by the poke: {comp}")
+    if stored:
+        same = [k for k, t in seen.items()
+                if t.device == DEV and torch.equal(t, stored[k].to(DEV))]
+        log(f"[serving] data dependencies: {len(same)} of {len(stored)} requests' "
+            f"{', '.join(stored)} reached their step on {DEV} bit-exact "
+            f"({next(iter(stored.values())).numel() * 2 / 1e6:.1f} MB each)")
+        if sorted(same) != sorted(stored):
+            raise AssertionError(f"data dependencies delivered {sorted(same)} of "
+                                 f"{sorted(stored)} bit-exact on {DEV}")
     return results
 
 
@@ -1139,9 +1347,54 @@ class pinned_routes:
         return False
 
 
-def phase_checks(cfg, params, prompt):
+def batch_desc(batch) -> str:
+    return " + ".join(f"{k} {t.shape[1]}" for k, t in batch.items())
+
+
+def model_batch(cfg, prompt, i=1) -> dict:
+    """A prefill's inputs on the card: the prompt's tokens, after request
+    i's patches for llava; request i's frames alone for hubert."""
+    batch = {}
+    if cfg.input_kind != "frames":
+        batch["tokens"] = torch.as_tensor(prompt, device=DEV)[None]
+    data = request_data(cfg, i)
+    if data is not None:
+        ref, host = data
+        batch = {ref.key.split("/")[0]: host.to(DEV)[None], **batch}
+    return batch
+
+
+F32_COPY_SHARE = 0.8  # of the card's memory: served weights + a float32 copy
+
+
+def f32_copy(cfg, params) -> tuple:
+    """(config, float32 params, what was cut) for the float32 gate: the
+    served weights cast up exactly, at full depth where that copy fits
+    beside them (F32_COPY_SHARE of the card), else cut in depth to the
+    first cycle of block_pattern (2 layers for a one-kind pattern) at full
+    width, with the embedding, input projections, head and final norm."""
+    served = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    f32 = 4 * sum(t.numel() for t in tree_leaves(params))
+    card = torch.cuda.get_device_properties(DEV).total_memory
+    if served + f32 <= F32_COPY_SHARE * card:
+        return cfg, tree_map(lambda t: t.float(), params), "full depth"
+    n = len(cfg.block_pattern)
+    depth = n if n > 1 else 2
+    cut = {k: tree_map(lambda t: t.float(), v) for k, v in params.items()
+           if k != "blocks"}
+    cut["blocks"] = {"cycle": tree_map(lambda t: t[:depth // n].float(),
+                                       params["blocks"]["cycle"])}
+    return (cfg.replace(num_layers=depth), cut,
+            f"cut to {depth} of {cfg.num_layers} layers at full width (a float32 "
+            f"copy of all, {f32 / 1e9:.1f} GB, beside the {served / 1e9:.1f} GB "
+            f"served would pass {F32_COPY_SHARE:g} of {card / 1e9:.1f} GB)")
+
+
+def phase_checks(cfg, params, batch):
     """Kernel-path against plain-path prefill logits, in the serving dtype
-    and in float32 (the same bf16 weights cast up, exactly). In an MoE
+    and in float32 (the same bf16 weights cast up, exactly; the models
+    whose float32 copy would not fit beside their weights cut in depth,
+    ``f32_copy``). ``batch``: the prefill's inputs on the card. In an MoE
     model the plain path takes the kernel path's experts (``pinned_routes``;
     phase_moe reports how many routings differ when it chooses its own): a
     last-bit difference flips a near-tie of the router, and a flipped choice
@@ -1154,19 +1407,16 @@ def phase_checks(cfg, params, prompt):
     over NOISE_SEEDS), within twice that floor: a bf16 model whose roundings
     cascade through its layers cannot agree closer with any other
     implementation. float32 has no such cascade and is held to TOL[f32]."""
-    tokens = torch.as_tensor(prompt, device=DEV)[None]
-
     def kernel_and_plain(c, prm):
         """(kernel-path prefill, a function that runs the plain path on the
         kernel path's experts)."""
         with recording_routes() as rec:
-            logits, _ = M.prefill(c, prm, {"tokens": tokens})
+            logits, _ = M.prefill(c, prm, batch)
         routes = [gi for gi, _, _ in rec.calls]
 
         def plain():
             with pinned_routes(routes):
-                return M.prefill(c.replace(use_pallas=False), prm,
-                                 {"tokens": tokens})[0]
+                return M.prefill(c.replace(use_pallas=False), prm, batch)[0]
         return logits, plain
 
     k_logits, plain = kernel_and_plain(cfg, params)
@@ -1185,7 +1435,9 @@ def phase_checks(cfg, params, prompt):
     scale = p_logits.abs().max().item()
     bound = max(TOL[torch.bfloat16] * scale, 2 * floor)
     k_tok, p_tok = greedy(k_logits), greedy(p_logits)
-    log(f"[checks] prefill logits kernel vs plain path (prompt {len(prompt)}"
+    if tuple(k_logits.shape) != (1, cfg.vocab_size):
+        raise AssertionError(f"prefill logits shape {tuple(k_logits.shape)}")
+    log(f"[checks] prefill logits kernel vs plain path ({batch_desc(batch)}"
         f"{', plain path on the kernel path experts' if cfg.num_experts else ''}): "
         f"max_abs_diff={diff:.4g} max_abs_logit={scale:.4g} "
         f"argmax {k_tok} vs {p_tok}; plain path under {NOISE:g} relative "
@@ -1199,15 +1451,16 @@ def phase_checks(cfg, params, prompt):
                              f"{diff} > max({TOL[torch.bfloat16]} * {scale}, "
                              f"2 * {floor})")
 
-    f32 = tree_map(lambda t: t.float(), params)
-    k32, plain32 = kernel_and_plain(cfg.replace(compute_dtype="float32"), f32)
+    c32, f32, depth = f32_copy(cfg, params)
+    k32, plain32 = kernel_and_plain(c32.replace(compute_dtype="float32"), f32)
     p32 = plain32()
     sync()
-    del f32
+    del f32, plain32
+    gc.collect()
     torch.cuda.empty_cache()
     diff32 = (k32 - p32).abs().max().item()
     scale32 = p32.abs().max().item()
-    log(f"[checks] float32 (the same weights): max_abs_diff={diff32:.4g} "
+    log(f"[checks] float32 (the same weights, {depth}): max_abs_diff={diff32:.4g} "
         f"max_abs_logit={scale32:.4g} tol {TOL[torch.float32]:g} x max logit")
     if not diff32 <= TOL[torch.float32] * scale32:
         raise AssertionError(f"float32 kernel-path logits differ from the plain "
@@ -1229,6 +1482,10 @@ def phase_checks(cfg, params, prompt):
         f"MB to {t.device}: {'bit-exact' if same else 'MISMATCH'}")
     if not same:
         raise AssertionError("prefetched array differs from the stored one")
+    return {"inputs": batch_desc(batch), "bf16_max_abs_diff": diff,
+            "bf16_max_abs_logit": scale, "bf16_bound": bound, "noise_moves": moves,
+            "f32_max_abs_diff": diff32, "f32_max_abs_logit": scale32,
+            "f32_depth": depth}
 
 
 def _profiled(fn):
@@ -1259,28 +1516,30 @@ PORT_KERNEL = re.compile(r"flash_fwd|ssd_cb|ssd_scan_kernel|"
                          r"rglru_scan|rmsnorm|cold_scan")
 
 
-def phase_profile(cfg, params, prompt):
-    """Where the time goes in one warm prefill and in 8 decode steps: device
-    busy share (kernel time over wall time) and the kernels that take it."""
-    tokens = torch.as_tensor(prompt, device=DEV)[None]
-    _, caches = M.prefill(cfg, params, {"tokens": tokens})
-    caches = pad_cache(caches, MAX_LEN, len(prompt), cfg=cfg)
-    tok = torch.ones((1, 1), dtype=torch.int32, device=DEV)
-    M.decode_step(cfg, params, tok, caches, len(prompt))
+def phase_profile(cfg, params, batch):
+    """Where the time goes in one warm prefill of ``batch`` and, for a
+    decoder, in 8 decode steps: device busy share (kernel time over wall
+    time) and the kernels that take it."""
+    _, caches = M.prefill(cfg, params, batch)
+    runs = [("prefill", lambda: M.prefill(cfg, params, batch), 1)]
+    if cfg.supports_decode:
+        n = sum(t.shape[1] for t in batch.values())
+        caches = pad_cache(caches, serve_len(cfg), n, cfg=cfg)
+        tok = torch.ones((1, 1), dtype=torch.int32, device=DEV)
+        M.decode_step(cfg, params, tok, caches, n)
+
+        def decode8():
+            for i in range(8):
+                M.decode_step(cfg, params, tok, caches, n + 1 + i)
+        runs.append(("decode x8", decode8, 8))
     sync()
 
-    def decode8():
-        for i in range(8):
-            M.decode_step(cfg, params, tok, caches, len(prompt) + 1 + i)
-
     out = {}
-    for name, fn, passes in (
-            ("prefill", lambda: M.prefill(cfg, params, {"tokens": tokens}), 1),
-            ("decode x8", decode8, 8)):
+    for name, fn, passes in runs:
         wall, kernels, ops, n_kernels = _profiled(fn)
         busy = sum(kernels.values())
         top = sorted(kernels.items(), key=lambda kv: -kv[1])[:4]
-        log(f"[profile] {name} (prompt {len(prompt)}): wall {wall * 1e3:.2f} ms, "
+        log(f"[profile] {name} ({batch_desc(batch)}): wall {wall * 1e3:.2f} ms, "
             f"device busy {busy * 1e3:.2f} ms ({100 * busy / wall:.1f}%), "
             f"{len(kernels)} kernel names, {n_kernels / passes:g} device kernels "
             f"a {'prefill' if passes == 1 else 'decode step'}")
@@ -1304,7 +1563,7 @@ def phase_profile(cfg, params, prompt):
     return out
 
 
-NORM_AB_TURNS = ("kernel", "plain", "plain", "kernel") * 6
+NORM_AB_TURNS = ("kernel", "plain", "plain", "kernel") * 3
 
 
 def ab_turn(cfg, params, tokens, caches, tok, n):
@@ -1339,7 +1598,7 @@ def phase_norm_ab(cfg, params, prompt) -> dict:
     """The rmsnorm kernel end to end: one warm prefill and NORM_AB_DECODE
     decode steps (host clock, each ended by a synchronise) with every norm
     through the kernel (with its prologues) and, everything else equal,
-    through the plain versions, in turns (kernel, plain, plain, kernel) x 6
+    through the plain versions, in turns (kernel, plain, plain, kernel) x 3
     (ab_turn); medians and minima."""
     tokens = torch.as_tensor(prompt, device=DEV)[None]
     _, caches = M.prefill(cfg, params, {"tokens": tokens})
@@ -1397,7 +1656,7 @@ class unfused_prologues:
         return False
 
 
-PROLOGUE_AB_TURNS = ("fused", "unfused", "unfused", "fused") * 6
+PROLOGUE_AB_TURNS = ("fused", "unfused", "unfused", "fused") * 3
 
 
 def phase_prologue_ab(cfg, params, prompt) -> dict:
@@ -1405,7 +1664,7 @@ def phase_prologue_ab(cfg, params, prompt) -> dict:
     NORM_AB_DECODE decode steps (host clock, each ended by a synchronise)
     with the residual adds and mamba2's gate fused into the norm launches
     and, everything else equal, as eager ops around them (unfused_prologues),
-    in turns (fused, unfused, unfused, fused) x 6 (ab_turn); medians and
+    in turns (fused, unfused, unfused, fused) x 3 (ab_turn); medians and
     minima. Then each
     variant's device kernels a decode step, from the profiler."""
     tokens = torch.as_tensor(prompt, device=DEV)[None]
@@ -2310,12 +2569,15 @@ def phase_jobs(cfg, params) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# the serving paths of the three models
+# the serving paths of the served models
 # ---------------------------------------------------------------------------
 MODEL_KERNELS = {"flash_attention": flash_attention, "ssd_scan": ssd_scan,
                  "rglru_scan": rglru_scan, "rmsnorm": rmsnorm}
-SERVED = ("qwen3-1.7b", "mamba2-370m", "recurrentgemma-9b", "granite-moe-3b-a800m")
-WINDOW_PROMPT = 2500  # recurrentgemma-9b: past its 2048-token window
+SERVED = ("qwen3-1.7b", "mamba2-370m", "recurrentgemma-9b", "granite-moe-3b-a800m",
+          "llama3.2-3b", "gemma3-27b", "qwen3-32b", "moonshot-v1-16b-a3b",
+          "llava-next-34b", "hubert-xlarge")
+AB_ARCHS = SERVED[:4]  # the norm A/B phases: these four only (the time limit)
+WINDOW_PROMPT = 2500  # past recurrentgemma-9b's 2048 and gemma3-27b's 1024 windows
 WINDOW_DECODE = 8
 
 
@@ -2361,12 +2623,29 @@ class counting_passes:
         return False
 
 
+def local_cache_slots(cfg, caches) -> dict:
+    """{cache: [slots of its k and v]} of every local layer's cache: the
+    stacked cycle/p{j} ((L, B, S, K, hd)) and the remainder rem{i} ((B, S,
+    K, hd))."""
+    pattern = cfg.block_pattern
+    n_cyc = cfg.num_layers // len(pattern)
+    out = {}
+    for j, kind in enumerate(pattern):
+        if kind == "local" and n_cyc:
+            out[f"cycle/p{j}"] = [t.shape[2] for t in caches["cycle"][f"p{j}"]]
+    for i, kind in enumerate(cfg.layer_kinds()[n_cyc * len(pattern):]):
+        if kind == "local":
+            out[f"rem{i}"] = [t.shape[1] for t in caches[f"rem{i}"]]
+    return out
+
+
 def phase_window(cfg, params):
     """A prompt past the local layers' window: prefill's flash_attention
-    masks by the window at d=256, the local caches come back as ring
-    buffers, and decode writes past the ring's wrap. Kernel-path against
-    plain-path logits at prefill and at every decode step (fed the same
-    tokens)."""
+    masks by the window (recurrentgemma-9b: 2048 at d = 256; gemma3-27b:
+    1024 at d = 128), every local layer's cache comes back as a ring buffer
+    of the window, and decode writes past the ring's wrap. Kernel-path
+    against plain-path logits at prefill and at every decode step (fed the
+    same tokens)."""
     rng = np.random.default_rng(3)
     prompt = rng.integers(1, cfg.vocab_size, size=WINDOW_PROMPT).astype(np.int32)
     tokens = torch.as_tensor(prompt, device=DEV)[None]
@@ -2376,10 +2655,11 @@ def phase_window(cfg, params):
         logits, caches = M.prefill(c, params, {"tokens": tokens})
         caches = pad_cache(caches, max_len, WINDOW_PROMPT, cfg=c)
         paths[name] = [c, caches, [logits]]
-    ring = [t.shape[2] for t in tree_leaves(paths["kernel"][1]["cycle"]["p2"])]
-    if ring != [cfg.local_window] * 2:
+    slots = local_cache_slots(cfg, paths["kernel"][1])
+    ring = [n for pair in slots.values() for n in pair]
+    if not slots or ring != [cfg.local_window] * len(ring):
         raise AssertionError(f"local caches are not {cfg.local_window}-slot ring "
-                             f"buffers: {ring}")
+                             f"buffers: {slots}")
     tok = greedy(paths["kernel"][2][0])
     for i in range(WINDOW_DECODE):
         t = torch.tensor([[tok]], dtype=torch.int32, device=DEV)
@@ -2397,13 +2677,13 @@ def phase_window(cfg, params):
                                  f"differ from the plain path: {diff} > "
                                  f"{TOL[torch.bfloat16]} * {scale}")
     log(f"[checks] window: prompt {WINDOW_PROMPT} > window {cfg.local_window}, "
-        f"ring buffers of {ring[0]} slots, prefill + {WINDOW_DECODE} decode steps "
+        f"ring buffers of {ring[0]} slots in {', '.join(slots)}, prefill + {WINDOW_DECODE} decode steps "
         f"(positions {WINDOW_PROMPT}..{WINDOW_PROMPT + WINDOW_DECODE - 1}, ring "
         f"slots {WINDOW_PROMPT % cfg.local_window}..): kernel vs plain logits, "
         f"worst max_abs_diff / max_abs_logit {worst:.4g} (tol "
         f"{TOL[torch.bfloat16]:g}) ok")
     return {"prompt": WINDOW_PROMPT, "decode_steps": WINDOW_DECODE,
-            "worst_rel_diff": worst}
+            "ring_caches": list(slots), "worst_rel_diff": worst}
 
 
 def phase_moe(cfg, params, prompt) -> dict:
@@ -2483,13 +2763,19 @@ def serve_obs_jobs(cfg, params, prompts) -> dict:
 
 
 def serve_model(arch) -> dict:
-    """The serving path of one model at full width: the federated workflow
-    and continuous batching with every kernel counter at 0 just before and
-    read just after, then the checks and the profile off the counted path;
-    for qwen3-1.7b, the traced serving, the profiler and the jobs phases on
-    the same weights."""
+    """The serving path of one model at full width and depth: the federated
+    workflow and (for a decoder) continuous batching with every kernel
+    counter at 0 just before and read just after, then the checks and the
+    profile off the counted path; for the first four models the norm A/B
+    phases, and for qwen3-1.7b the traced serving, the profiler and the
+    jobs phases on the same weights. The card's peak allocation is logged
+    after init and after each phase; the model's wall from its first draw
+    to its weights freed."""
+    t_model = time.perf_counter()
     cfg = get_config(arch).replace(use_pallas=True)
-    params = make_params(cfg)
+    params, init = make_params(cfg)
+    memory = {"init": init["peak_bytes"]}
+    torch.cuda.reset_peak_memory_stats(DEV)
     prompts = serve_prompts(cfg)
     per_prefill = launches_per_prefill(cfg)
 
@@ -2498,9 +2784,12 @@ def serve_model(arch) -> dict:
     with counting_passes() as passes:
         requests = phase_federated(cfg, params, prompts)
         fed, fed_passes = launch_counts(), dict(passes.n)
-        batching = phase_batching(cfg, params)
+        memory_mark(memory, "federated")
+        batching = phase_batching(cfg, params) if cfg.supports_decode else None
         total = launch_counts()
-    n_batched = batching["prefills"] + 1  # + the prewarm prefill
+    n_batched = batching["prefills"] + 1 if batching else 0  # + the prewarm prefill
+    if batching:
+        memory_mark(memory, "batching")
     n_pass = passes.n["prefill"] + passes.n["decode"]
     log(f"[serving] {arch} launches per prefill {per_prefill}: federated {fed} "
         f"over {len(prompts)} prefills; batching "
@@ -2522,17 +2811,31 @@ def serve_model(arch) -> dict:
             raise AssertionError(f"{arch}: batched prefills did not each launch "
                                  f"{n} {want} times")
 
-    moe = phase_moe(cfg, params, prompts[1]) if cfg.num_experts else None
-    phase_checks(cfg, params, prompts[1])
-    window = (phase_window(cfg, params) if "local" in cfg.block_pattern
-              else None)
-    profile = phase_profile(cfg, params, prompts[0])
-    norm_ab = phase_norm_ab(cfg, params, prompts[0])
-    prologue_ab = phase_prologue_ab(cfg, params, prompts[0])
+    moe = None
+    if cfg.num_experts:
+        moe = phase_moe(cfg, params, prompts[1])
+        memory_mark(memory, "moe")
+    checks = phase_checks(cfg, params, model_batch(cfg, prompts[1]))
+    memory_mark(memory, "checks")
+    window = None
+    if "local" in cfg.block_pattern:
+        window = phase_window(cfg, params)
+        memory_mark(memory, "window")
+    profile = phase_profile(cfg, params, model_batch(cfg, prompts[0], 0))
+    memory_mark(memory, "profile")
+    norm_ab = prologue_ab = None
+    if arch in AB_ARCHS:
+        norm_ab = phase_norm_ab(cfg, params, prompts[0])
+        prologue_ab = phase_prologue_ab(cfg, params, prompts[0])
     extra = serve_obs_jobs(cfg, params, prompts) if arch == OBS_ARCH else {}
     del params
+    gc.collect()
     torch.cuda.empty_cache()
-    return {"arch": arch, "requests": requests, "batching": batching,
+    wall = time.perf_counter() - t_model
+    log(f"[serving] {arch}: every phase passed in {wall:.1f} s; peaks (GB) "
+        + ", ".join(f"{k} {v / 1e9:.2f}" for k, v in memory.items()))
+    return {"arch": arch, "wall_s": wall, "init": init, "memory_peak_bytes": memory,
+            "requests": requests, "batching": batching, "checks": checks,
             "profile": profile, "launches": total, "passes": passes.n,
             "per_prefill": per_prefill, "window": window, "moe": moe,
             "norm_ab": norm_ab, "prologue_ab": prologue_ab, **extra}
@@ -2542,7 +2845,7 @@ def phase_obs_only() -> dict:
     """``--only obs``: phase 11 alone, qwen3-1.7b loaded for (b) and (c)."""
     res = {"sweep": phase_obs_sweep()}
     cfg = get_config(OBS_ARCH).replace(use_pallas=True)
-    params = make_params(cfg)
+    params, _ = make_params(cfg)
     res["serving"], trace = phase_obs_serving(cfg, params, serve_prompts(cfg))
     res["profiler"] = phase_obs_profiler(trace)
     del params
@@ -2554,7 +2857,7 @@ def phase_obs_only() -> dict:
 def phase_jobs_only() -> dict:
     """``--only jobs``: phase 12 alone, on qwen3-1.7b."""
     cfg = get_config(OBS_ARCH).replace(use_pallas=True)
-    params = make_params(cfg)
+    params, _ = make_params(cfg)
     res = phase_jobs(cfg, params)
     del params
     torch.cuda.empty_cache()
@@ -2586,16 +2889,24 @@ def main():
         return
     if len(sys.argv) > 1:
         sys.exit(f"chip_smoke: usage: {sys.argv[0]} [--only PHASE,...]")
+    t_run = time.perf_counter()
+    walls = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        walls[name] = time.perf_counter() - t0
+        return out
+
     smi = phase_device()
-    ptxas = phase_build()
-    fa = phase_kernels()
-    ssd = phase_ssd_scan()
-    rg = phase_rglru_scan()
-    cs = phase_cold_scan()
-
-    rn = phase_rmsnorm()
-
-    served = [serve_model(arch) for arch in SERVED]
+    ptxas = timed("build", phase_build)
+    fa = timed("kernels", phase_kernels)
+    ssd = timed("ssd_scan", phase_ssd_scan)
+    rg = timed("rglru_scan", phase_rglru_scan)
+    cs = timed("cold_scan", phase_cold_scan)
+    rn = timed("rmsnorm", phase_rmsnorm)
+    served = timed("serving", lambda: [serve_model(arch) for arch in SERVED])
+    t_rest = time.perf_counter()
 
     # the simulator's path: 4 nodes, so one cold_scan launch per node per sweep
     cold_scan.launches = 0
@@ -2623,7 +2934,7 @@ def main():
         return sum(m["launches"][name] for m in served)
 
     def served_launches(name) -> dict:
-        """Launches by main path: serving and batching of the four models,
+        """Launches by main path: serving and batching of the served models,
         the traced serving (11 b) and the jobs phase (12) of qwen3-1.7b."""
         return {"serving": model_launches(name),
                 "obs": obs_served["obs"]["launches"][name],
@@ -2695,7 +3006,9 @@ def main():
         "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
         "replaces": "src/repro/kernels/rmsnorm.py:24",
         "launches": sum(served_launches("rmsnorm").values()),
-        "launches_by_path": served_launches("rmsnorm"), "dtype": "bfloat16",
+        "launches_by_path": served_launches("rmsnorm"),
+        "launches_by_model": {m["arch"]: m["launches"]["rmsnorm"] for m in served},
+        "dtype": "bfloat16",
         "shape": rn["shape"], "max_abs_err": rn["max_abs_err"],
         "tolerance": rn["tolerance"], "ms": rn["ms"], "plain_ms": rn["plain_ms"],
         "bound_ms": rn["bound_ms"], "bound_by": rn["bound_by"],
@@ -2707,6 +3020,10 @@ def main():
         "decode": {k: {f: r[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
                                          "library_ms")}
                    for k, r in rn["decode"].items()},
+        "shapes": {arch: {k: {f: r[f] for f in ("shape", "ms", "plain_ms", "bound_ms",
+                                                "bound_by", "library_ms")}
+                          for k, r in by.items()}
+                   for arch, by in rn["shapes"].items()},
     }]
     for m in served:
         log(json.dumps({"serving": {k: v for k, v in m.items()
@@ -2716,6 +3033,10 @@ def main():
                             "profiler": obs_served["profiler"],
                             "controller": obs_controller},
                     "jobs": obs_served["jobs"]}, default=str))
+    walls["sim, adapt, obs"] = time.perf_counter() - t_rest
+    log(f"[wall] every phase passed in {time.perf_counter() - t_run:.1f} s: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()) + "; served "
+        + ", ".join(f"{m['arch']} {m['wall_s']:.1f} s" for m in served))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,7 @@
 """Architecture registry: ``--arch <id>`` -> ArchConfig.
 
-Lists the configs the PyTorch port can run today (the JAX package's
-``repro/configs/registry.py`` lists all ten). ``smoke_config`` is the same
-REDUCED same-family config as there: small layers/width, tiny embedding
+Lists the JAX package's ten configs, in its order. ``smoke_config`` is the
+same REDUCED same-family config as there: small layers/width, tiny embedding
 tables, for CPU tests.
 """
 from __future__ import annotations
@@ -13,11 +12,16 @@ from repro_torch.configs.base import (ArchConfig, SHAPES, ALL_SHAPES,  # noqa: F
                                       applicable_shapes)
 
 _MODULES = {
+    "llama3.2-3b": "repro_torch.configs.llama3_2_3b",
+    "qwen3-32b": "repro_torch.configs.qwen3_32b",
+    "gemma3-27b": "repro_torch.configs.gemma3_27b",
     "qwen3-1.7b": "repro_torch.configs.qwen3_1_7b",
-    "mamba2-370m": "repro_torch.configs.mamba2_370m",
-    "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
+    "hubert-xlarge": "repro_torch.configs.hubert_xlarge",
     "granite-moe-3b-a800m": "repro_torch.configs.granite_moe_3b_a800m",
     "moonshot-v1-16b-a3b": "repro_torch.configs.moonshot_v1_16b_a3b",
+    "llava-next-34b": "repro_torch.configs.llava_next_34b",
+    "mamba2-370m": "repro_torch.configs.mamba2_370m",
+    "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -26,6 +26,11 @@ Handlers keep the chain signature ``handler(payload, data)``. A fan-in node
 receives ``{pred_name: payload}``; source nodes receive the client payload;
 everything else receives its single predecessor's output unwrapped — so
 functions written for chains deploy onto DAGs without change.
+
+A step's data dependencies land on its platform's CUDA device, where it
+has one (``Platform.device``): the prefetch copies them there on a side
+stream during the poke window. On a CPU platform they arrive as the store
+holds them, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -38,6 +43,8 @@ from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import Callable, Optional
 
+import torch
+
 from repro_torch.core.faults import FaultSchedule, InjectedFault, RetryPolicy
 from repro_torch.core.platform import Platform, PlatformRegistry, PlatformWrapper
 from repro_torch.core.prefetch import Prefetcher
@@ -45,6 +52,13 @@ from repro_torch.core.prewarm import CompileCache
 from repro_torch.core.store import ObjectStore, StreamConfig, _sizeof
 from repro_torch.core.timing import PokeTimingController
 from repro_torch.dag.spec import DagSpec
+
+
+def _data_device(platform: Platform):
+    """Where a step's data dependencies go: the platform's CUDA device, or
+    None (as stored) on a CPU platform."""
+    dev = torch.device(platform.device)
+    return dev if dev.type == "cuda" else None
 
 
 @dataclass
@@ -407,7 +421,8 @@ class DagDeployment:
                 fetch_futs = {}
                 if step.data_deps:
                     fetch_futs = self.prefetcher.start(
-                        step.data_deps, fn.platform.region
+                        step.data_deps, fn.platform.region,
+                        device=_data_device(fn.platform),
                     )
             if poke_span is not None:
                 poke_span.end()
@@ -809,7 +824,8 @@ class DagDeployment:
                     )
             elif step.data_deps:
                 data, _ = self.prefetcher.fetch_blocking(
-                    step.data_deps, fn.platform.region
+                    step.data_deps, fn.platform.region,
+                    device=_data_device(fn.platform),
                 )
             else:
                 data = {}

@@ -1,12 +1,14 @@
 """Model-level public API, serving half (port of ``repro/models/model.py``).
 
   param_defs / init_params        declarative params
+  init_serving_params             params in their serving dtypes, drawn
+                                  layer slice by layer slice
   prefill / decode_step           serving
   spec_zeros                      zero caches from SpecDefs
 
 Training (``forward_train`` and the step factories) is not ported yet.
-``init_params`` and ``spec_zeros`` put their tensors on the card unless the
-caller passes ``device="cpu"``.
+``init_params``, ``init_serving_params`` and ``spec_zeros`` put their
+tensors on the card unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -28,6 +30,14 @@ def param_defs(cfg) -> dict:
 def init_params(cfg, generator: torch.Generator, device="cuda"):
     return prm.init_params(param_defs(cfg), generator,
                            getattr(torch, cfg.param_dtype), device)
+
+
+def init_serving_params(cfg, generator: torch.Generator, device="cuda"):
+    """What ``tfm.cast_params(cfg, init_params(...))`` returns in dtype and
+    distribution, at a peak of the serving bytes plus one float32 layer
+    slice or unstacked leaf (``params.init_serving_params``)."""
+    return prm.init_serving_params(param_defs(cfg), generator,
+                                   getattr(torch, cfg.compute_dtype), device)
 
 
 # ---------------------------------------------------------------------------

@@ -60,35 +60,53 @@ def _uniform(shape, g, device, lo, hi):
     return u * (hi - lo) + lo
 
 
-def _materialize(d: ParamDef, g, dtype, device):
-    shape = d.shape
-    if d.init == "zeros":
-        return torch.zeros(shape, dtype=dtype, device=device)
-    if d.init == "ones":
-        return torch.ones(shape, dtype=dtype, device=device)
+def _scale(d: ParamDef) -> float:
+    if d.scale is not None:
+        return d.scale
+    # fan-in variance scaling; the stacked "layers" axis is NOT a fan-in dim
+    # (with it, a 2-cycle model would initialize every weight ~1/sqrt(2) too
+    # small)
+    eff = d.shape[1:] if (d.axes and d.axes[0] == "layers") else d.shape
+    fan_in = eff[0] if len(eff) >= 1 else 1
+    return 1.0 if d.init == "embed" else 1.0 / math.sqrt(max(1, fan_in))
+
+
+def _draw(d: ParamDef, shape, g, device):
+    """``d``'s init at ``shape`` (all of ``d.shape`` or one layer slice of
+    it), float32, scaled in place."""
     if d.init == "dt_bias":
         # mamba2 dt bias: softplus^-1 of dt in [1e-3, 1e-1]
         u = _uniform(shape, g, device, math.log(1e-3), math.log(1e-1))
         dt = torch.exp(u)
-        return (dt + torch.log(-torch.expm1(-dt))).to(dtype)
+        return dt + torch.log(-torch.expm1(-dt))
     if d.init == "ssd_alog":
-        a = _uniform(shape, g, device, 1.0, 16.0)
-        return torch.log(a).to(dtype)
+        return torch.log(_uniform(shape, g, device, 1.0, 16.0))
     if d.init == "lru_lambda":
         # RG-LRU Lambda: sigmoid(L)^c in [0.9, 0.999] at c=8
         r = _uniform(shape, g, device, 0.9, 0.999)
         a = r ** (1.0 / 8.0)
-        return torch.log(a / (1 - a)).to(dtype)
-    scale = d.scale
-    if scale is None:
-        # fan-in variance scaling; the stacked "layers" axis is NOT a fan-in
-        # dim (with it, a 2-cycle model would initialize every weight
-        # ~1/sqrt(2) too small)
-        eff = shape[1:] if (d.axes and d.axes[0] == "layers") else shape
-        fan_in = eff[0] if len(eff) >= 1 else 1
-        scale = 1.0 if d.init == "embed" else 1.0 / math.sqrt(max(1, fan_in))
+        return torch.log(a / (1 - a))
     x = torch.randn(shape, generator=g, device=device, dtype=torch.float32)
-    return (x * scale).to(dtype)
+    return x.mul_(_scale(d))
+
+
+def _materialize(d: ParamDef, g, dtype, device):
+    if d.init == "zeros":
+        return torch.zeros(d.shape, dtype=dtype, device=device)
+    if d.init == "ones":
+        return torch.ones(d.shape, dtype=dtype, device=device)
+    return _draw(d, d.shape, g, device).to(dtype)
+
+
+def _materialize_sliced(d: ParamDef, g, dtype, device):
+    """``_materialize`` that draws a stacked leaf one layer slice at a time
+    into a tensor of ``dtype``: a float32 copy of one slice at most."""
+    if d.init in ("zeros", "ones") or not d.axes or d.axes[0] != "layers":
+        return _materialize(d, g, dtype, device)
+    out = torch.empty(d.shape, dtype=dtype, device=device)
+    for i in range(d.shape[0]):
+        out[i].copy_(_draw(d, d.shape[1:], g, device))
+    return out
 
 
 def init_params(defs, generator: torch.Generator, dtype=torch.float32,
@@ -101,6 +119,26 @@ def init_params(defs, generator: torch.Generator, dtype=torch.float32,
         lambda path, d: _materialize(d, _path_generator(seed, path, dev), dtype,
                                      dev),
         defs, is_leaf=_is_def)
+
+
+def init_serving_params(defs, generator: torch.Generator, compute_dtype,
+                        device="cuda"):
+    """Params as ``cast_params`` would leave ``init_params``' float32 ones:
+    a leaf with ``ndim >= 2`` in ``compute_dtype``, any other in float32,
+    with the same distributions. Each leaf with a leading ``layers`` axis is
+    drawn one layer slice at a time (float32, scaled in place, cast into its
+    slot), every other leaf whole, so the peak is the serving total plus one
+    float32 slice or unstacked leaf: how a model of 55-69 GB in bf16 is
+    initialised on one 80 GB card. The numbers differ from ``init_params``':
+    slice-by-slice draws do not reproduce one draw of the whole leaf. The
+    JAX package has no such function."""
+    dev = check_device(device)
+    seed = generator.initial_seed()
+
+    def leaf(path, d):
+        dtype = compute_dtype if len(d.shape) >= 2 else torch.float32
+        return _materialize_sliced(d, _path_generator(seed, path, dev), dtype, dev)
+    return tree_map_with_path(leaf, defs, is_leaf=_is_def)
 
 
 def param_count(defs) -> int:

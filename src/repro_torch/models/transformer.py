@@ -170,11 +170,22 @@ def run_blocks(cfg, params, x, positions, mode, caches=None, cur_index=None):
 # embedding / head
 # ---------------------------------------------------------------------------
 def embed_inputs(cfg, params, batch):
-    """Returns x: (B, T, D) in compute dtype."""
+    """Returns x: (B, T, D) in compute dtype. ``frames`` (B, T, D) go
+    through ``in_proj``; ``patches`` (B, P, D), where the config takes them
+    and the batch has them, through ``patch_proj``, in front of the token
+    embeddings."""
     cdt = getattr(torch, cfg.compute_dtype)
-    if cfg.input_kind != "tokens":
+    if cfg.input_kind == "frames":
+        x = torch.einsum("btd,de->bte",
+                         *promote(batch["frames"].to(cdt), params["in_proj"]))
+    elif cfg.input_kind in ("tokens", "tokens+patches"):
+        x = params["embed"][batch["tokens"].long()]
+        if cfg.input_kind == "tokens+patches" and "patches" in batch:
+            pat = torch.einsum("bpd,de->bpe", *promote(batch["patches"].to(cdt),
+                                                       params["patch_proj"]))
+            x = torch.cat(promote(pat, x), dim=1)
+    else:
         raise NotImplementedError(f"input_kind {cfg.input_kind!r} is not ported")
-    x = params["embed"][batch["tokens"].long()]
     return shard(x.to(cdt), "batch", "seq", "act_embed")
 
 

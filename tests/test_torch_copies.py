@@ -178,14 +178,46 @@ def test_moonshot_config_fields_equal(make):
     assert t.active_param_count() == j.active_param_count()
 
 
+# the reference's source string, the port's: each names the checkpoint
+# whose widths the config carries (hubert-xlarge's paper stands)
+SOURCES = {
+    "llama3.2-3b": ("hf:meta-llama/Llama-3.2-1B; unverified",
+                    "hf:meta-llama/Llama-3.2-3B; unverified"),
+    "gemma3-27b": ("hf:google/gemma-3-1b-pt; unverified",
+                   "hf:google/gemma-3-27b-pt; unverified"),
+    "qwen3-32b": ("hf:Qwen/Qwen3-8B; hf", "hf:Qwen/Qwen3-32B; hf"),
+    "hubert-xlarge": ("arXiv:2106.07447; unverified",
+                      "arXiv:2106.07447; unverified"),
+    "llava-next-34b": ("hf:llava-hf/llava-v1.6-mistral-7b-hf; unverified",
+                       "hf:llava-hf/llava-v1.6-34b-hf; unverified"),
+}
+
+
+@pytest.mark.parametrize("make", ["get_config", "smoke_config"])
+@pytest.mark.parametrize("arch", list(SOURCES))
+def test_served_config_fields_equal_but_source(arch, make):
+    """Every field equal to the reference's, ``source`` excepted: four of
+    the reference's name another checkpoint than the one whose widths they
+    carry, and the port's copies name that one."""
+    j = getattr(jreg, make)(arch)
+    t = getattr(treg, make)(arch)
+    jf, tf = dataclasses.asdict(j), dataclasses.asdict(t)
+    assert (jf.pop("source"), tf.pop("source")) == SOURCES[arch]
+    assert tf == jf
+    assert t.layer_kinds() == j.layer_kinds()
+    assert (t.q_dim, t.kv_dim) == (j.q_dim, j.kv_dim)
+    assert t.param_count() == j.param_count()
+
+
 def test_registry_lists_only_ported_configs():
-    assert treg.ARCH_IDS == ("qwen3-1.7b", "mamba2-370m", "recurrentgemma-9b",
-                             "granite-moe-3b-a800m", "moonshot-v1-16b-a3b")
+    """The port lists the reference's ten archs, in its order."""
+    assert treg.ARCH_IDS == jreg.ARCH_IDS
+    assert len(treg.ARCH_IDS) == 10
     for arch in treg.ARCH_IDS:
         assert treg._MODULES[arch] == jreg._MODULES[arch].replace(
             "repro.", "repro_torch.", 1)
     with pytest.raises(KeyError):
-        treg.get_config("llava-next-34b")
+        treg.get_config("no-such-arch")
 
 
 # ---------------------------------------------------------------------------

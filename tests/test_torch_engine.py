@@ -197,3 +197,14 @@ def test_prefetcher_cpu_device_hands_over_without_copy():
         np.testing.assert_array_equal(t.numpy(), TABLE)
     assert np.shares_memory(out["w"].numpy(), TABLE)
 
+
+
+def test_data_deps_go_to_the_platform_cuda_device(monkeypatch):
+    """A step's data dependencies are fetched onto its platform's CUDA
+    device (the prefetch's side-stream copy); on a CPU platform they arrive
+    as the store holds them, as in the JAX package (the cases above)."""
+    from repro_torch.dag.engine import _data_device
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    gpu = tcore.Platform("gpu-pod", "us", device="cuda:0")
+    assert _data_device(gpu) == torch.device("cuda:0")
+    assert _data_device(tcore.Platform("host", "us", device="cpu")) is None

@@ -18,6 +18,7 @@ from repro_torch.configs.registry import smoke_config
 from repro_torch.models import model as M
 from repro_torch.models.convert import caches_from_jax, params_from_jax
 from repro_torch.models.params import ParamDef
+from repro_torch.models.transformer import cast_params
 from repro_torch.models.tree import tree_leaves, tree_map_with_path
 
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -142,6 +143,78 @@ def test_init_params_distributions():
     assert not torch.equal(other["embed"], params["embed"])
 
 
+def _special_bounds(init):
+    """The closed range of a non-normal init (``params._draw``)."""
+    def inv_softplus(dt):
+        return dt + np.log(-np.expm1(-dt))
+
+    def logit_root(r):
+        a = r ** (1 / 8)
+        return np.log(a / (1 - a))
+    return {"dt_bias": (inv_softplus(1e-3), inv_softplus(1e-1)),
+            "ssd_alog": (0.0, np.log(16.0)),
+            "lru_lambda": (logit_root(0.9), logit_root(0.999))}[init]
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "mamba2-370m", "recurrentgemma-9b"])
+def test_init_serving_params_dtypes_and_distributions(arch):
+    """Each leaf in the dtype cast_params gives init_params' leaf (bf16
+    matrices and stacked vectors, float32 vectors); zeros exact; every
+    layer slice of a stacked normal leaf keeps the whole leaf's fan-in
+    scale (std within 5%), as test_init_params_distributions pins for
+    init_params; special inits inside their ranges; a leaf without a layers
+    axis is drawn whole, so it equals init_params' leaf, cast."""
+    cfg = smoke_config(arch).replace(d_model=256, vocab_size=1024,
+                                     compute_dtype="bfloat16")
+    if cfg.d_ff:
+        cfg = cfg.replace(d_ff=512)
+    if cfg.lru_width:
+        cfg = cfg.replace(lru_width=256)
+    defs = M.param_defs(cfg)
+    serving = M.init_serving_params(cfg, torch.Generator().manual_seed(0),
+                                    device="cpu")
+    cast = cast_params(cfg, M.init_params(cfg, torch.Generator().manual_seed(0),
+                                          device="cpu"))
+    checked = []
+
+    def pick(tree, path):
+        for key in path.strip("[]").split("]["):
+            tree = tree[key.strip("'")]
+        return tree
+
+    def check(path, d):
+        leaf, want = pick(serving, path), pick(cast, path)
+        assert tuple(leaf.shape) == d.shape and leaf.dtype == want.dtype, path
+        stacked = d.axes[0] == "layers"
+        if d.init in ("zeros", "ones"):
+            assert torch.equal(leaf, torch.full_like(leaf, d.init == "ones"))
+        elif d.init in ("dt_bias", "ssd_alog", "lru_lambda"):
+            lo, hi = _special_bounds(d.init)
+            f = leaf.float()
+            pad = 0.01 * max(abs(lo), abs(hi))  # a bf16 rounding
+            assert f.min().item() >= lo - pad and f.max().item() <= hi + pad, path
+        else:
+            eff = d.shape[1:] if stacked else d.shape
+            scale = 1.0 if d.init == "embed" else eff[0] ** -0.5
+            for part in (leaf if stacked else [leaf]):
+                part = part.float()
+                if part.numel() < 4096:  # too few draws for a 5% bar
+                    continue
+                assert abs(part.std().item() / scale - 1) < 0.05, path
+                assert abs(part.mean().item()) < 0.05 * scale, path
+        if not stacked:
+            assert torch.equal(leaf, want), path
+        elif d.init not in ("zeros", "ones") and d.shape[0] > 1:
+            assert not torch.equal(leaf[0], leaf[1]), path  # a draw a slice
+        checked.append((d.init, stacked))
+
+    tree_map_with_path(check, defs, is_leaf=lambda x: isinstance(x, ParamDef))
+    assert ("normal", True) in checked and ("embed", False) in checked
+    again = M.init_serving_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(again),
+                                                 tree_leaves(serving)))
+
+
 def test_param_count_matches_jax():
     for name in ("qwen3-1.7b",):
         from repro.configs.registry import get_config as jget
@@ -155,3 +228,5 @@ def test_entry_points_refuse_cuda_without_a_card():
     cfg = smoke_config("qwen3-1.7b")
     with pytest.raises(RuntimeError, match="CUDA"):
         M.init_params(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        M.init_serving_params(cfg, torch.Generator().manual_seed(0))
