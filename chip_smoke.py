@@ -458,20 +458,21 @@ def phase_tile_cost() -> dict:
             for d, H, K in ((64, 16, 8), (128, 16, 8), (256, 16, 1))}
 
 
-FLASH_SERVING = {  # (B, T, S, H, K, d, window, causal) of a 512-token prefill
-    "qwen3-1.7b": (1, 512, 512, 16, 8, 128, None, True),
-    "granite-moe-3b-a800m": (1, 512, 512, 24, 8, 64, None, True),
-    "recurrentgemma-9b": (1, 512, 512, 16, 1, 256, 2048, True),
-    "llama3.2-3b": (1, 512, 512, 24, 8, 128, None, True),
+FLASH_SERVING = {
+    # (B, T, S, H, K, d, window, causal, seed) of a 512-token prefill
+    "qwen3-1.7b": (1, 512, 512, 16, 8, 128, None, True, 1),
+    "granite-moe-3b-a800m": (1, 512, 512, 24, 8, 64, None, True, 14),
+    "recurrentgemma-9b": (1, 512, 512, 16, 1, 256, 2048, True, 12),
+    "llama3.2-3b": (1, 512, 512, 24, 8, 128, None, True, 83),
     # the local layers; at 512 tokens the 1024 window does not bind, so the
     # global layers compute the same function
-    "gemma3-27b": (1, 512, 512, 32, 16, 128, 1024, True),
-    "qwen3-32b": (1, 512, 512, 64, 8, 128, None, True),
-    "moonshot-v1-16b-a3b": (1, 512, 512, 16, 16, 128, None, True),
+    "gemma3-27b": (1, 512, 512, 32, 16, 128, 1024, True, 84),
+    "qwen3-32b": (1, 512, 512, 64, 8, 128, None, True, 85),
+    "moonshot-v1-16b-a3b": (1, 512, 512, 16, 16, 128, None, True, 86),
     # 1152 patches in front of the 512-token prompt
-    "llava-next-34b": (1, 1664, 1664, 56, 8, 128, None, True),
+    "llava-next-34b": (1, 1664, 1664, 56, 8, 128, None, True, 87),
     # an encoder: 512 frames, non-causal, d = 80 on mma.sync
-    "hubert-xlarge": (1, 512, 512, 16, 16, 80, None, False),
+    "hubert-xlarge": (1, 512, 512, 16, 16, 80, None, False, 26),
 }
 FLASH_LABELS = {"qwen3-1.7b": "(a) main path", "recurrentgemma-9b": "(l) local layer",
                 "granite-moe-3b-a800m": "(n) granite prefill",
@@ -499,8 +500,7 @@ def phase_kernels() -> dict:
     layers past their window."""
     bf16, f32 = torch.bfloat16, torch.float32
     shapes = {}
-    for seed, (arch, (B, T, S, H, K, d, window, causal)) in enumerate(
-            FLASH_SERVING.items(), start=80):
+    for arch, (B, T, S, H, K, d, window, causal, seed) in FLASH_SERVING.items():
         shapes[arch] = flash_case(FLASH_LABELS.get(arch, f"(z) {arch}"), B, T, S, H,
                                   K, d, bf16, causal, window, seed=seed, timed=True)
     cases = (("(b) ragged", 1, 300, 300, 16, 8, 128, bf16, True, None, 2),
@@ -1563,7 +1563,7 @@ def phase_profile(cfg, params, batch):
     return out
 
 
-NORM_AB_TURNS = ("kernel", "plain", "plain", "kernel") * 3
+NORM_AB_TURNS = ("kernel", "plain", "plain", "kernel") * 6
 
 
 def ab_turn(cfg, params, tokens, caches, tok, n):
@@ -1598,7 +1598,7 @@ def phase_norm_ab(cfg, params, prompt) -> dict:
     """The rmsnorm kernel end to end: one warm prefill and NORM_AB_DECODE
     decode steps (host clock, each ended by a synchronise) with every norm
     through the kernel (with its prologues) and, everything else equal,
-    through the plain versions, in turns (kernel, plain, plain, kernel) x 3
+    through the plain versions, in turns (kernel, plain, plain, kernel) x 6
     (ab_turn); medians and minima."""
     tokens = torch.as_tensor(prompt, device=DEV)[None]
     _, caches = M.prefill(cfg, params, {"tokens": tokens})
@@ -1656,7 +1656,7 @@ class unfused_prologues:
         return False
 
 
-PROLOGUE_AB_TURNS = ("fused", "unfused", "unfused", "fused") * 3
+PROLOGUE_AB_TURNS = ("fused", "unfused", "unfused", "fused") * 6
 
 
 def phase_prologue_ab(cfg, params, prompt) -> dict:
@@ -1664,7 +1664,7 @@ def phase_prologue_ab(cfg, params, prompt) -> dict:
     NORM_AB_DECODE decode steps (host clock, each ended by a synchronise)
     with the residual adds and mamba2's gate fused into the norm launches
     and, everything else equal, as eager ops around them (unfused_prologues),
-    in turns (fused, unfused, unfused, fused) x 3 (ab_turn); medians and
+    in turns (fused, unfused, unfused, fused) x 6 (ab_turn); medians and
     minima. Then each
     variant's device kernels a decode step, from the profiler."""
     tokens = torch.as_tensor(prompt, device=DEV)[None]

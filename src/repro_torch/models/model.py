@@ -1,8 +1,7 @@
 """Model-level public API, serving half (port of ``repro/models/model.py``).
 
   param_defs / init_params        declarative params
-  init_serving_params             params in their serving dtypes, drawn
-                                  layer slice by layer slice
+  init_serving_params             params drawn in their serving dtypes
   prefill / decode_step           serving
   spec_zeros                      zero caches from SpecDefs
 
@@ -33,11 +32,14 @@ def init_params(cfg, generator: torch.Generator, device="cuda"):
 
 
 def init_serving_params(cfg, generator: torch.Generator, device="cuda"):
-    """What ``tfm.cast_params(cfg, init_params(...))`` returns in dtype and
-    distribution, at a peak of the serving bytes plus one float32 layer
-    slice or unstacked leaf (``params.init_serving_params``)."""
-    return prm.init_serving_params(param_defs(cfg), generator,
-                                   getattr(torch, cfg.compute_dtype), device)
+    """``tfm.cast_params(cfg, init_params(...))``, drawn in those dtypes
+    (``ndim >= 2`` in ``compute_dtype``, vectors in float32): the peak is
+    the serving bytes plus one float32 layer slice or unstacked leaf. It is
+    how a model of 55-69 GB in bf16 is initialised on one 80 GB card; the
+    JAX package has no such function."""
+    return prm.init_params(param_defs(cfg), generator,
+                           getattr(torch, cfg.compute_dtype), device,
+                           vector_dtype=torch.float32)
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,8 @@ init); materialized params are derived from that single source.
 from its own ``torch.Generator`` on the target device, seeded from the base
 seed and the sha256 of the leaf's path string (the JAX package folds the
 same hash into its PRNG key). The numbers differ from JAX's: the two
-generators are different streams.
+generators are different streams. A stacked leaf is drawn one layer slice
+at a time, so its numbers are not those of one draw of the whole leaf.
 """
 from __future__ import annotations
 
@@ -91,18 +92,16 @@ def _draw(d: ParamDef, shape, g, device):
 
 
 def _materialize(d: ParamDef, g, dtype, device):
+    """``d`` on ``device`` in ``dtype``. A leaf with a leading ``layers``
+    axis is drawn one layer slice at a time (float32, scaled in place, cast
+    into its slot of the ``dtype`` tensor), every other leaf whole, so the
+    float32 draw never holds more than one slice or one unstacked leaf."""
     if d.init == "zeros":
         return torch.zeros(d.shape, dtype=dtype, device=device)
     if d.init == "ones":
         return torch.ones(d.shape, dtype=dtype, device=device)
-    return _draw(d, d.shape, g, device).to(dtype)
-
-
-def _materialize_sliced(d: ParamDef, g, dtype, device):
-    """``_materialize`` that draws a stacked leaf one layer slice at a time
-    into a tensor of ``dtype``: a float32 copy of one slice at most."""
-    if d.init in ("zeros", "ones") or not d.axes or d.axes[0] != "layers":
-        return _materialize(d, g, dtype, device)
+    if not d.axes or d.axes[0] != "layers":
+        return _draw(d, d.shape, g, device).to(dtype)
     out = torch.empty(d.shape, dtype=dtype, device=device)
     for i in range(d.shape[0]):
         out[i].copy_(_draw(d, d.shape[1:], g, device))
@@ -110,34 +109,18 @@ def _materialize_sliced(d: ParamDef, g, dtype, device):
 
 
 def init_params(defs, generator: torch.Generator, dtype=torch.float32,
-                device="cuda"):
-    """Materialize ``defs`` on ``device``; the base seed is
-    ``generator.initial_seed()``."""
+                device="cuda", vector_dtype=None):
+    """Materialize ``defs`` on ``device``: a leaf with ``ndim >= 2`` in
+    ``dtype``, any other in ``vector_dtype`` (``dtype`` if None). The base
+    seed is ``generator.initial_seed()``. The values do not depend on the
+    dtypes: a float32 draw cast."""
     dev = check_device(device)
     seed = generator.initial_seed()
-    return tree_map_with_path(
-        lambda path, d: _materialize(d, _path_generator(seed, path, dev), dtype,
-                                     dev),
-        defs, is_leaf=_is_def)
-
-
-def init_serving_params(defs, generator: torch.Generator, compute_dtype,
-                        device="cuda"):
-    """Params as ``cast_params`` would leave ``init_params``' float32 ones:
-    a leaf with ``ndim >= 2`` in ``compute_dtype``, any other in float32,
-    with the same distributions. Each leaf with a leading ``layers`` axis is
-    drawn one layer slice at a time (float32, scaled in place, cast into its
-    slot), every other leaf whole, so the peak is the serving total plus one
-    float32 slice or unstacked leaf: how a model of 55-69 GB in bf16 is
-    initialised on one 80 GB card. The numbers differ from ``init_params``':
-    slice-by-slice draws do not reproduce one draw of the whole leaf. The
-    JAX package has no such function."""
-    dev = check_device(device)
-    seed = generator.initial_seed()
+    vector_dtype = dtype if vector_dtype is None else vector_dtype
 
     def leaf(path, d):
-        dtype = compute_dtype if len(d.shape) >= 2 else torch.float32
-        return _materialize_sliced(d, _path_generator(seed, path, dev), dtype, dev)
+        return _materialize(d, _path_generator(seed, path, dev),
+                            dtype if len(d.shape) >= 2 else vector_dtype, dev)
     return tree_map_with_path(leaf, defs, is_leaf=_is_def)
 
 

@@ -162,8 +162,8 @@ def test_init_serving_params_dtypes_and_distributions(arch):
     matrices and stacked vectors, float32 vectors); zeros exact; every
     layer slice of a stacked normal leaf keeps the whole leaf's fan-in
     scale (std within 5%), as test_init_params_distributions pins for
-    init_params; special inits inside their ranges; a leaf without a layers
-    axis is drawn whole, so it equals init_params' leaf, cast."""
+    init_params; special inits inside their ranges; both draw through the
+    same path, so every leaf equals init_params' leaf, cast."""
     cfg = smoke_config(arch).replace(d_model=256, vocab_size=1024,
                                      compute_dtype="bfloat16")
     if cfg.d_ff:
@@ -202,9 +202,8 @@ def test_init_serving_params_dtypes_and_distributions(arch):
                     continue
                 assert abs(part.std().item() / scale - 1) < 0.05, path
                 assert abs(part.mean().item()) < 0.05 * scale, path
-        if not stacked:
-            assert torch.equal(leaf, want), path
-        elif d.init not in ("zeros", "ones") and d.shape[0] > 1:
+        assert torch.equal(leaf, want), path
+        if stacked and d.init not in ("zeros", "ones") and d.shape[0] > 1:
             assert not torch.equal(leaf[0], leaf[1]), path  # a draw a slice
         checked.append((d.init, stacked))
 
