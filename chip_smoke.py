@@ -131,17 +131,41 @@ no result):
               tokens equal an unfaulted run's, a resubmitted completed job
               dedups, a job timed out short of one decode dead-letters with
               status "timeout"; exact kernel launches
+ 13. train    the training path (the JAX package's plain numerics: its
+              Pallas kernels have no backward, and the port's wrappers
+              raise under grad): (a) qwen3-1.7b at full width and depth,
+              Trainer.run for 16 steps of 8 x 256 tokens, float32 master
+              params and bf16 compute, pre-warmed through CompileCache
+              (params and optimizer state unchanged across it, by word
+              sums and version counters), batches pre-fetched on a side
+              stream, the final checkpoint (20.6 GB) written and timed;
+              every loss and grad norm finite, the last 4 steps' mean loss
+              below the first 4's, no port kernel launched; the warm step,
+              tokens/s, peak memory, one step under torch.profiler; (d) on
+              those weights each kernel wrapper raises when an input
+              requires grad, and forward_train with use_pallas=True under
+              no_grad launches flash_attention and rmsnorm exactly (28,
+              113) with the plain path's loss within 2e-2 relative; (b)
+              one float32 make_train_step step at full width cut to 2
+              layers (qwen3-1.7b, also with 2 microbatches; mamba2-370m;
+              granite-moe-3b-a800m) on the card against the same step on
+              the CPU: loss 1e-5 and grad norm 1e-4 relative, m and v 1e-4
+              of each leaf's largest entry, the params as
+              tests/test_torch_train_step.py holds them; (c) the restart
+              drill at that depth in bf16: 12 straight steps against 6, a
+              fresh Trainer on the same directory, 6 more (rtol 1e-5)
 Then one JSON line describing every kernel (launches counted over the main
-paths: serving and batching of the ten models and phases 11 (b) and 12
-for flash_attention, ssd_scan, rglru_scan and rmsnorm, the simulator, the
-recomposition and phase 11's (a, c, d) for cold_scan), the card's name and
-power limit, and the last line {"ok": true, "device": {...}}.
+paths: serving and batching of the ten models, phases 11 (b) and 12, and
+training and 13 (d)'s forward for flash_attention, ssd_scan, rglru_scan and
+rmsnorm, the simulator, the recomposition and phase 11's (a, c, d) for
+cold_scan), the card's name and power limit, and the last line {"ok":
+true, "device": {...}}.
 
     python3 chip_smoke.py --only kernels,ssd_scan
 
 runs phases 1-2 and the named ones of kernels, ssd_scan, rglru_scan,
-rmsnorm, cold_scan, obs and jobs only (a short call to bring up a kernel
-or a phase), prints their results and no final line. ``--only tile_cost``
+rmsnorm, cold_scan, obs, jobs and train only (a short call to bring up a
+kernel or a phase), prints their results and no final line. ``--only tile_cost``
 times one kv tile of the wgmma flash kernel at d = 64, 128, 256, a
 diagnostic no default run makes.
 """
@@ -153,6 +177,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -205,6 +230,9 @@ from repro_torch.obs import (MetricsRegistry, SloSpec, SloTracker,  # noqa: E402
                              TailSampler, Tracer, WhatIfProfiler, calibrate,
                              extract_critical_path, instrument, write_chrome_trace)
 from repro_torch.serving import Request, ServingEngine, pad_cache  # noqa: E402
+from repro_torch.data import SyntheticCorpus, make_train_iterator  # noqa: E402
+from repro_torch.optim import AdamW, AdamWConfig, cosine_schedule  # noqa: E402
+from repro_torch.train import Trainer, TrainerConfig  # noqa: E402
 
 DEV = torch.device("cuda:0")
 HBM_BPS = 3.35e12  # H100 SXM device memory rate
@@ -2864,11 +2892,357 @@ def phase_jobs_only() -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 13: training
+# ---------------------------------------------------------------------------
+TRAIN_ARCH = "qwen3-1.7b"
+TRAIN_STEPS = 16
+TRAIN_BATCH = (8, 256)  # the reference TrainerConfig's global batch and seq_len
+# the reference AdamWConfig's peak_lr with tests/test_trainer.py's warmup: the
+# loss falls within 16 steps (at that test's 3e-3 its mean fell too, after a
+# jump to over 3x the first step's loss: PERF.md §6)
+TRAIN_ADAMW = AdamWConfig(peak_lr=3e-4, warmup_steps=2, total_steps=100)
+TRAIN_F32_ARCHS = ("qwen3-1.7b", "mamba2-370m", "granite-moe-3b-a800m")
+TRAIN_F32_BATCH = (2, 64)
+TRAIN_RESTART = (12, 6)  # straight steps; steps before the restart
+TRAIN_RTOL = 1e-5  # the restart's losses (tests/test_trainer.py)
+CKPT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_ckpt")
+
+
+def state_checksum(tree) -> list:
+    """Per leaf: the sum and a position-weighted sum of its 32-bit words
+    (int64, on the card, 2**24 words at a time). A change of any one word
+    changes the first; the leaf's in-place version counter goes beside it."""
+    out = []
+    for t in tree_leaves(tree):
+        w = t.detach().reshape(-1).view(torch.int32)
+        total = weighted = 0
+        for i in range(0, w.numel(), 1 << 24):
+            c = w[i:i + (1 << 24)].long()
+            pos = torch.arange(i, i + c.numel(), device=c.device) % 65521 + 1
+            total += int(c.sum())
+            weighted += int((c * pos).sum())
+        out.append((total, weighted, t._version))
+    return out
+
+
+def state_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def cut_depth(cfg):
+    """Full width, one cycle of block_pattern (2 layers for a one-kind
+    pattern)."""
+    n = len(cfg.block_pattern)
+    return cfg.replace(num_layers=n if n > 1 else 2)
+
+
+def train_full() -> dict:
+    """(a) qwen3-1.7b at full width and depth: Trainer.run for 16 steps,
+    prewarmed, float32 master params and bf16 compute, no async save
+    inside the 16 steps and the blocking final one timed; then one more
+    step under the profiler and the kernels under grad (d) on its
+    weights."""
+    cfg = get_config(TRAIN_ARCH)
+    if cfg.use_pallas or cfg.param_dtype != "float32" or cfg.compute_dtype != "bfloat16":
+        raise AssertionError(f"{TRAIN_ARCH} does not train on the jnp path in "
+                             f"float32/bf16: {cfg.use_pallas}, {cfg.param_dtype}, "
+                             f"{cfg.compute_dtype}")
+    B, T = TRAIN_BATCH
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    free = shutil.disk_usage(os.path.dirname(CKPT_DIR)).free
+    tc = TrainerConfig(seq_len=T, global_batch=B, total_steps=TRAIN_STEPS,
+                       checkpoint_every=TRAIN_STEPS + 1, checkpoint_dir=CKPT_DIR,
+                       adamw=TRAIN_ADAMW)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(DEV)
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, tc, device=DEV).init_state()
+    sync()
+    init_s = time.perf_counter() - t0
+    params_b, opt_b = state_bytes(tr.params), state_bytes(tr.opt_state)
+    n_params = sum(t.numel() for t in tree_leaves(tr.params))
+    log(f"[train] {TRAIN_ARCH}: {cfg.num_layers} layers d_model={cfg.d_model} "
+        f"heads={cfg.num_heads}/{cfg.num_kv_heads} head_dim={cfg.head_dim} "
+        f"vocab={cfg.vocab_size}: {n_params / 1e9:.3f} B params, float32 master "
+        f"{params_b / 1e9:.2f} GB + m/v {opt_b / 1e9:.2f} GB on {DEV} ({init_s:.1f} s); "
+        f"disk free by the checkpoint dir {free / 1e9:.1f} GB")
+
+    example = SyntheticCorpus(cfg.vocab_size, T, tc.seed).batch(0, B)
+    state = {"params": tr.params, "opt": tr.opt_state}
+    before = state_checksum(state)
+    torch.cuda.reset_peak_memory_stats(DEV)
+    t0 = time.perf_counter()
+    tr.prewarm(example)
+    sync()
+    prewarm_s = time.perf_counter() - t0
+    if state_checksum(state) != before:
+        raise AssertionError("prewarm changed the params or the optimizer state")
+    if tr.cache.stats["prewarms"] != 1:
+        raise AssertionError(f"prewarm went around the compile cache: {tr.cache.stats}")
+    prewarm_peak = torch.cuda.max_memory_allocated(DEV)
+    log(f"[train] prewarm {prewarm_s:.2f} s through CompileCache; params and m/v "
+        f"unchanged ({len(before)} leaves, word sums and version counters); peak "
+        f"{prewarm_peak / 1e9:.2f} GB")
+
+    for k in MODEL_KERNELS.values():
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats(DEV)
+    t0 = time.perf_counter()
+    metrics = tr.run(TRAIN_STEPS)
+    run_s = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated(DEV)
+    if any(launches.values()):
+        raise AssertionError(f"training launched port kernels: {launches}")
+    losses = [m["loss"] for m in metrics]
+    gnorms = [m["grad_norm"] for m in metrics]
+    dts = [m["dt"] for m in metrics]
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        raise AssertionError(f"non-finite loss or grad norm: {losses}, {gnorms}")
+    first, last = statistics.mean(losses[:4]), statistics.mean(losses[-4:])
+    if not last < first:
+        raise AssertionError(f"the loss did not fall: first 4 {first}, last 4 {last}")
+    step_s = statistics.median(dts)
+    ck = tr.ckpt
+    ckpt_bytes = ck.nbytes(tr.step)
+    reckoned = params_b + opt_b + params_b  # + the float32 grads
+    log(f"[train] {TRAIN_STEPS} steps of {B} x {T}: losses "
+        + " ".join(f"{x:.3f}" for x in losses) + f"; grad norms {gnorms[0]:.3g} .. "
+        f"{gnorms[-1]:.3g}; mean of first 4 {first:.4f} > last 4 {last:.4f}")
+    log(f"[train] warm step wall median {step_s * 1e3:.2f} ms (min {min(dts) * 1e3:.2f}, "
+        f"max {max(dts) * 1e3:.2f}), {B * T / step_s:.0f} tokens/s; run() "
+        f"{run_s:.2f} s with the final save; peak max_memory_allocated "
+        f"{peak / 1e9:.2f} GB beside params + m/v + grads {reckoned / 1e9:.2f} GB; "
+        f"port kernel launches {launches}")
+    log(f"[train] final checkpoint step {tr.step}: {ckpt_bytes / 1e9:.2f} GB on disk, "
+        f"snapshot {ck.stats['blocked_s']:.2f} s, write {ck.stats['save_s']:.2f} s")
+
+    batch = next(make_train_iterator(cfg, T, B, start_step=tr.step, seed=tc.seed,
+                                     device=DEV))
+    wall, kernels, ops, n_kernels = _profiled(
+        lambda: tr._step_fn(tr.params, tr.opt_state, batch, tr.step))
+    busy = sum(kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:4]
+    log(f"[train] profiled step: wall {wall * 1e3:.2f} ms, device busy "
+        f"{busy * 1e3:.2f} ms ({100 * busy / wall:.1f}%), {n_kernels} device kernels")
+    for kname, ks in top:
+        log(f"[train]   {100 * ks / busy if busy else 0:5.1f}% {ks * 1e3:8.3f} ms  "
+            f"{kname[:90]}")
+    guard = train_kernels_forward(cfg, tr.params, batch)
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    del tr, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"arch": TRAIN_ARCH, "steps": TRAIN_STEPS, "batch": [B, T],
+            "adamw": vars(TRAIN_ADAMW), "params": n_params, "init_s": init_s,
+            "losses": losses, "grad_norms": gnorms, "step_s": dts,
+            "step_median_s": step_s, "tokens_per_s": B * T / step_s,
+            "prewarm_s": prewarm_s, "prewarm_peak_bytes": prewarm_peak,
+            "peak_bytes": peak, "params_bytes": params_b, "opt_bytes": opt_b,
+            "reckoned_bytes": reckoned, "ckpt_bytes": ckpt_bytes,
+            "ckpt_snapshot_s": ck.stats["blocked_s"], "ckpt_write_s": ck.stats["save_s"],
+            "launches": launches, "profile": {
+                "wall_s": wall, "device_busy_s": busy, "device_kernels": n_kernels,
+                "top": [[k[:90], v] for k, v in top],
+                "top_ops": [[op, sh[:100], calls, ds] for ds, calls, op, sh in ops[:4]]},
+            "forward_kernels": guard}
+
+
+def train_kernels_forward(cfg, params, batch) -> dict:
+    """(d) Each kernel wrapper raises when an input requires grad; under
+    no_grad, forward_train with use_pallas=True launches flash_attention
+    once per layer and rmsnorm once per norm, and its loss is the plain
+    path's within the serving checks' bf16 bound."""
+    g = torch.Generator(device=DEV).manual_seed(0)
+    x = torch.randn(1, 64, 2, 128, generator=g, device=DEV, dtype=torch.bfloat16)
+    w = torch.randn(128, generator=g, device=DEV)
+    la = -torch.rand(1, 64, 128, generator=g, device=DEV)
+    dt = torch.rand(1, 64, 2, generator=g, device=DEV)
+    bm = torch.randn(1, 64, 128, generator=g, device=DEV, dtype=torch.bfloat16)
+    calls = {"flash_attention": lambda t: flash_attention(t, x, x),
+             "rmsnorm": lambda t: rmsnorm(t, w),
+             "add_rmsnorm": lambda t: add_rmsnorm(t, x, w),
+             "gated_rmsnorm": lambda t: gated_rmsnorm(x, t, w),
+             "ssd_scan": lambda t: ssd_scan(t, dt, torch.zeros(2, device=DEV), bm, bm, 64),
+             "rglru_scan": lambda t: rglru_scan(la, t)}
+    args = {"rglru_scan": la.clone()}
+    refused = []
+    for name, call in calls.items():
+        arg = args.get(name, x).clone().requires_grad_()
+        try:
+            call(arg)
+        except RuntimeError as e:
+            if "no backward" not in str(e):
+                raise
+            refused.append(name)
+        else:
+            raise AssertionError(f"{name} did not refuse an input that requires grad")
+    with torch.no_grad():  # the same calls run
+        for name, call in calls.items():
+            call(args.get(name, x).clone().requires_grad_())
+    sync()
+    want = launches_per_prefill(cfg)
+    for k in MODEL_KERNELS.values():
+        k.launches = 0
+    with torch.no_grad():
+        loss_k, _ = M.forward_train(cfg.replace(use_pallas=True), params, batch)
+        counts = launch_counts()
+        loss_p, _ = M.forward_train(cfg, params, batch)
+    sync()
+    lk, lp = float(loss_k), float(loss_p)
+    log(f"[train] kernels under grad: {', '.join(refused)} raise on {DEV} and run "
+        f"under no_grad; forward_train(use_pallas=True) under no_grad launches "
+        f"{counts} (want {want}); loss {lk:.5f} vs plain path {lp:.5f} (tol "
+        f"{TOL[torch.bfloat16]:g} relative)")
+    if counts != want:
+        raise AssertionError(f"forward_train launched {counts}, want {want}")
+    if not abs(lk - lp) <= TOL[torch.bfloat16] * abs(lp):
+        raise AssertionError(f"kernel-path loss {lk} differs from the plain path's "
+                             f"{lp} by more than {TOL[torch.bfloat16]} relative")
+    return {"refused": refused, "launches": counts, "loss_kernel": lk,
+            "loss_plain": lp, "tolerance": TOL[torch.bfloat16]}
+
+
+def _assert_first_update(name, got, want, m_ref, p0, lr):
+    """The params after Adam's first step (see tests/test_torch_train_step.py):
+    entries with a resolved gradient within 1e-3 x lr; every entry within lr
+    (1 + wd |p|). Returns the largest difference."""
+    c = TRAIN_ADAMW
+    worst = 0.0
+    leaves = zip(tree_leaves(got), tree_leaves(want), tree_leaves(m_ref), p0,
+                 strict=True)
+    for a, b, m, p in leaves:
+        a, b, g = a.cpu(), b.cpu(), m.cpu().abs()
+        diff = (a - b).abs()
+        worst = max(worst, float(diff.max()))
+        resolved = (g >= 1e-3 * g.max()) & (g >= 1e3 * c.eps * (1 - c.b1))
+        if resolved.any() and float(diff[resolved].max()) > 1e-3 * lr:
+            raise AssertionError(f"{name}: a param with a resolved gradient moved "
+                                 f"{float(diff[resolved].max())} from the CPU's")
+        wd = c.weight_decay if p.ndim >= 2 else 0.0
+        if not bool((diff <= lr * (1 + wd * p.abs()) * (1 + 1e-5)).all()):
+            raise AssertionError(f"{name}: a param moved more than lr from the CPU's")
+    return worst
+
+
+def train_f32_check() -> dict:
+    """(b) One make_train_step step in float32 at cut depth and full width
+    on the card against the same step of the port on the CPU (which the
+    CPU tests hold to the JAX package): loss within 1e-5 relative, grad
+    norm within 1e-4 relative, m and v within 1e-4 of each leaf's largest
+    entry, the params as the CPU tests hold them. TF32 is off (phase 1)."""
+    out = {}
+    B, T = TRAIN_F32_BATCH
+    lr = float(cosine_schedule(0, peak_lr=TRAIN_ADAMW.peak_lr,
+                               warmup_steps=TRAIN_ADAMW.warmup_steps,
+                               total_steps=TRAIN_ADAMW.total_steps))
+    cases = [(a, 1) for a in TRAIN_F32_ARCHS] + [(TRAIN_F32_ARCHS[0], 2)]
+    for arch, nmb in cases:
+        cfg = cut_depth(get_config(arch)).replace(param_dtype="float32",
+                                                  compute_dtype="float32")
+        cpu = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+        gpu = tree_map(lambda t: t.to(DEV, copy=True), cpu)
+        p0 = [t.clone() for t in tree_leaves(cpu)]
+        batch = SyntheticCorpus(cfg.vocab_size, T, 0).batch(0, B)
+        opt = AdamW(TRAIN_ADAMW)
+        step = M.make_train_step(cfg, opt, nmb)
+        t0 = time.perf_counter()
+        cpu, cst, cm = step(cpu, opt.init(cpu),
+                            {k: torch.from_numpy(v) for k, v in batch.items()}, 0)
+        cpu_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        gpu, gst, gm = step(gpu, opt.init(gpu),
+                            {k: torch.from_numpy(v).to(DEV) for k, v in batch.items()}, 0)
+        sync()
+        gpu_s = time.perf_counter() - t0
+        loss_rel = abs(float(gm["loss"]) - float(cm["loss"])) / abs(float(cm["loss"]))
+        gn_rel = abs(float(gm["grad_norm"]) - float(cm["grad_norm"])) / float(cm["grad_norm"])
+        mv = 0.0
+        for a, b in zip(tree_leaves([gst["m"], gst["v"]]),
+                        tree_leaves([cst["m"], cst["v"]]), strict=True):
+            scale = float(b.abs().max())
+            mv = max(mv, float((a.cpu() - b).abs().max()) / scale if scale else 0.0)
+        name = f"{arch}{' x2 microbatches' if nmb > 1 else ''}"
+        p_worst = _assert_first_update(name, gpu, cpu, cst["m"], p0, lr)
+        log(f"[train] f32 {name} ({cfg.num_layers} layers, full width, B={B} T={T}): "
+            f"loss {float(gm['loss']):.6f} vs CPU {float(cm['loss']):.6f} (rel "
+            f"{loss_rel:.2e}, tol 1e-5), grad norm rel {gn_rel:.2e} (tol 1e-4), m/v "
+            f"{mv:.2e} of the leaf max (tol 1e-4), params max diff {p_worst:.3g} (lr "
+            f"{lr:g}); card {gpu_s:.2f} s, CPU {cpu_s:.2f} s")
+        if not (loss_rel <= 1e-5 and gn_rel <= 1e-4 and mv <= 1e-4):
+            raise AssertionError(f"{name}: the card's float32 step differs from the CPU's")
+        out[name] = {"layers": cfg.num_layers, "loss": float(gm["loss"]),
+                     "loss_cpu": float(cm["loss"]), "loss_rel": loss_rel,
+                     "grad_norm_rel": gn_rel, "moments_rel": mv, "params_max_diff": p_worst,
+                     "card_s": gpu_s, "cpu_s": cpu_s}
+        del cpu, gpu, cst, gst
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_restart() -> dict:
+    """(c) The restart drill at cut depth in the config's dtypes: 12 straight
+    steps equal 6 steps, a fresh Trainer on the same directory, then 6 more;
+    losses at rtol 1e-5."""
+    cfg = cut_depth(get_config(TRAIN_ARCH))
+    straight, first = TRAIN_RESTART
+    B, T = TRAIN_BATCH
+
+    def trainer(d, every):
+        return Trainer(cfg, TrainerConfig(seq_len=T, global_batch=B, checkpoint_every=every,
+                                          checkpoint_dir=os.path.join(CKPT_DIR, d),
+                                          adamw=TRAIN_ADAMW), device=DEV)
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    # the straight run saves only at its end; the interrupted one saves
+    # asynchronously every 5 steps and at its end (step 6), the resumed one
+    # asynchronously at 10 and at its end
+    ref = [m["loss"] for m in trainer("a", straight + 1).run(straight)]
+    trainer("b", first - 1).run(first)
+    t3 = trainer("b", first - 1)
+    got = [m["loss"] for m in t3.run(straight - first)]
+    wall = time.perf_counter() - t0
+    if t3.step != straight:
+        raise AssertionError(f"the restarted trainer ended at step {t3.step}")
+    worst = max(abs(a - b) / abs(b) for a, b in zip(got, ref[first:]))
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    log(f"[train] restart drill ({cfg.num_layers} layers, {cfg.compute_dtype}, {B} x {T}): "
+        f"{straight} straight vs {first} + restart + {straight - first}: largest "
+        f"relative loss difference {worst:.3g} (tol {TRAIN_RTOL:g}), {wall:.1f} s")
+    if not worst <= TRAIN_RTOL:
+        raise AssertionError(f"the restart drill's losses differ by {worst}")
+    del t3
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"layers": cfg.num_layers, "losses": ref, "resumed": got,
+            "max_rel_diff": worst, "wall_s": wall}
+
+
+def phase_train() -> dict:
+    """Phase 13: (a) and (d) on qwen3-1.7b at full width and depth, (b) the
+    float32 cut-depth check, (c) the restart drill."""
+    res, walls = {}, {}
+    for name, fn in (("full", train_full), ("f32", train_f32_check),
+                     ("restart", train_restart)):
+        t0 = time.perf_counter()
+        res[name] = fn()
+        walls[name] = time.perf_counter() - t0
+    res["wall_s"] = sum(walls.values())
+    res["walls_s"] = walls
+    log(f"[train] phase 13 passed in {res['wall_s']:.1f} s: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()))
+    return res
+
+
 ONLY_PHASES = {"kernels": lambda: phase_kernels(), "ssd_scan": lambda: phase_ssd_scan(),
                "rglru_scan": lambda: phase_rglru_scan(),
                "rmsnorm": lambda: phase_rmsnorm(), "cold_scan": lambda: phase_cold_scan(),
                "tile_cost": lambda: phase_tile_cost(), "obs": phase_obs_only,
-               "jobs": phase_jobs_only}
+               "jobs": phase_jobs_only, "train": lambda: phase_train()}
 
 
 def main():
@@ -2929,16 +3303,22 @@ def main():
     obs_sweep = phase_obs_sweep()
     obs_controller = phase_obs_controller()
     obs_served = next(m for m in served if m["arch"] == OBS_ARCH)
+    walls["sim, adapt, obs"] = time.perf_counter() - t_rest
+    train = timed("train", phase_train)
 
     def model_launches(name):
         return sum(m["launches"][name] for m in served)
 
     def served_launches(name) -> dict:
         """Launches by main path: serving and batching of the served models,
-        the traced serving (11 b) and the jobs phase (12) of qwen3-1.7b."""
+        the traced serving (11 b) and the jobs phase (12) of qwen3-1.7b,
+        training (13 a: none, the jnp path) and the no_grad forward_train
+        of 13 (d)."""
         return {"serving": model_launches(name),
                 "obs": obs_served["obs"]["launches"][name],
-                "jobs": obs_served["jobs"]["launches"][name]}
+                "jobs": obs_served["jobs"]["launches"][name],
+                "train": train["full"]["launches"][name],
+                "train_forward_no_grad": train["full"]["forward_kernels"]["launches"][name]}
 
     cold_paths = {"sim": sim_launches, "adapt": adapt_launches,
                   "obs_sweep": obs_sweep["launches"],
@@ -2986,7 +3366,8 @@ def main():
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:71",
-        "launches": model_launches("ssd_scan"), "dtype": "bfloat16",
+        "launches": sum(served_launches("ssd_scan").values()),
+        "launches_by_path": served_launches("ssd_scan"), "dtype": "bfloat16",
         "shape": [1, 512, 32, 64, 128, 256], "max_abs_err": ssd["max_abs_err"],
         "tolerance": ssd["tolerance"], "ms": ssd["ms"], "plain_ms": ssd["plain_ms"],
         "bound_ms": ssd["bound_ms"], "bound_by": ssd["bound_by"],
@@ -2996,7 +3377,8 @@ def main():
         "name": "rglru_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
         "replaces": "src/repro/kernels/rglru_scan.py:49",
-        "launches": model_launches("rglru_scan"), "dtype": "float32",
+        "launches": sum(served_launches("rglru_scan").values()),
+        "launches_by_path": served_launches("rglru_scan"), "dtype": "float32",
         "shape": rg["shape"], "max_abs_err": rg["max_abs_err"],
         "tolerance": rg["tolerance"], "ms": rg["ms"], "plain_ms": rg["plain_ms"],
         "yardstick_ms": rg["yardstick_ms"], "bound_ms": rg["bound_ms"],
@@ -3033,7 +3415,7 @@ def main():
                             "profiler": obs_served["profiler"],
                             "controller": obs_controller},
                     "jobs": obs_served["jobs"]}, default=str))
-    walls["sim, adapt, obs"] = time.perf_counter() - t_rest
+    log(json.dumps({"train": train}, default=str))
     log(f"[wall] every phase passed in {time.perf_counter() - t_run:.1f} s: "
         + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()) + "; served "
         + ", ".join(f"{m['arch']} {m['wall_s']:.1f} s" for m in served))

@@ -32,7 +32,7 @@ import threading
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_grad
 
 NEG_INF = -1e30
 HEAD_DIMS = tuple(range(16, 257, 16))  # every d the kernels take
@@ -188,7 +188,9 @@ def _check(q, k, v, window):
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, scale=None):
-    """q: (B,T,H,d); k/v: (B,S,K,d), H % K == 0. Returns (B,T,H,d)."""
+    """q: (B,T,H,d); k/v: (B,S,K,d), H % K == 0. Returns (B,T,H,d).
+    Raises where an input requires grad (``refuse_grad``)."""
+    refuse_grad("flash_attention", q, k, v)
     if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      scale=scale)

@@ -28,7 +28,7 @@ import threading
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_grad
 
 _lib_lock = threading.Lock()
 _count_lock = threading.Lock()
@@ -79,7 +79,9 @@ def _check(log_a, b):
 
 
 def rglru_scan(log_a, b, *, chunk=256, block_w=None):
-    """log_a, b: (B,T,W) float32. Returns (y (B,T,W), h_last (B,W))."""
+    """log_a, b: (B,T,W) float32. Returns (y (B,T,W), h_last (B,W)).
+    Raises where an input requires grad (``refuse_grad``)."""
+    refuse_grad("rglru_scan", log_a, b)
     if log_a.device.type == "cpu" and b.device.type == "cpu":
         return rglru_scan_plain(log_a, b)
     if log_a.device.type != "cuda":

@@ -35,7 +35,7 @@ import threading
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_grad
 
 MAX_D = 16384  # 512 threads a row, 32 elements a thread in registers
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -113,7 +113,9 @@ def _rows(t):
 
 
 def rmsnorm(x, w, eps=1e-6):
-    """x: (..., D); w: (D,). Returns x's shape and dtype."""
+    """x: (..., D); w: (D,). Returns x's shape and dtype. Raises where an
+    input requires grad (``refuse_grad``), as do the two below."""
+    refuse_grad("rmsnorm", x, w)
     if x.is_cuda:
         return _launch(x, w, eps)
     if x.device.type == "cpu" and w.device.type == "cpu":
@@ -124,6 +126,7 @@ def rmsnorm(x, w, eps=1e-6):
 def add_rmsnorm(x, h, w, eps=1e-6):
     """x, h: (..., D); w: (D,). Returns ``(x + h, rmsnorm(x + h, w))``, both
     in the dtype of ``x + h``, from one launch on CUDA tensors."""
+    refuse_grad("add_rmsnorm", x, h, w)
     if x.is_cuda:
         return _launch(x, w, eps, h, _ADD)
     if x.device.type == "cpu" and h.device.type == "cpu" and w.device.type == "cpu":
@@ -134,6 +137,7 @@ def add_rmsnorm(x, h, w, eps=1e-6):
 def gated_rmsnorm(y, z, w, eps=1e-6):
     """y, z: (..., D); w: (D,). Returns ``rmsnorm(y * silu(z), w)`` in the
     dtype of ``y * silu(z)``, from one launch on CUDA tensors."""
+    refuse_grad("gated_rmsnorm", y, z, w)
     if y.is_cuda:
         return _launch(y, w, eps, z, _GATE)
     if y.device.type == "cpu" and z.device.type == "cpu" and w.device.type == "cpu":

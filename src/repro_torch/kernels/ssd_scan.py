@@ -39,7 +39,7 @@ import threading
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_grad
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 TILE = 64  # rows t and columns s of a C·Bᵀ tile
@@ -209,8 +209,10 @@ def _check(x, dt, A_log, B_mat, C_mat, Q):
 
 def ssd_scan(x, dt, A_log, B_mat, C_mat, chunk, *, block_h=None):
     """x (B,L,H,P), dt (B,L,H), A_log (H,), B/C (B,L,N). Returns (y (B,L,H,P)
-    in x's dtype, final_state (B,H,P,N) float32)."""
+    in x's dtype, final_state (B,H,P,N) float32). Raises where an input
+    requires grad (``refuse_grad``)."""
     tensors = (x, dt, A_log, B_mat, C_mat)
+    refuse_grad("ssd_scan", *tensors)
     if all(t.device.type == "cpu" for t in tensors):
         return ssd_scan_plain(x, dt, A_log, B_mat, C_mat, chunk)
     if x.device.type != "cuda":

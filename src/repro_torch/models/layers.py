@@ -25,6 +25,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.dist.sharding import current_sharding, shard
 from repro_torch.kernels.flash_attention import flash_attention
@@ -156,6 +157,58 @@ def _sdpa(cfg, q, k, v, mask):
     return out.reshape(B, T, H, hd)
 
 
+def _sdpa_chunked(cfg, q, k, v, q_pos, k_pos, window, causal, chunk, unroll):
+    """Flash-style q-chunked attention: scores stay O(chunk x S).
+
+    For sliding-window layers the K/V are sliced to the band
+    [chunk_start - window + 1, chunk_end], so local attention costs
+    O(T*(window+chunk)) instead of O(T*S). Each chunk runs under a
+    non-reentrant ``torch.utils.checkpoint`` (the JAX package's
+    ``@jax.checkpoint``): the backward pass recomputes the chunk's score
+    tile instead of saving it.
+
+    ``unroll`` True slices q chunk by chunk; False walks the chunks of one
+    (n, B, chunk, H, hd) view, as the JAX package's ``lax.scan`` does. Both
+    run the same ops on the same values.
+    """
+    B, T, H, hd = q.shape
+    S = k.shape[1]
+    n = T // chunk
+    assert T % chunk == 0, (T, chunk)
+
+    banded = window is not None and S > window + chunk
+    if banded:
+        band = window + chunk
+        # left-pad so every chunk's band slice has the size `band`; padded
+        # positions get k_pos = -(window + 1) (always masked by dq < window)
+        pad = band - chunk
+        k = F.pad(k, (0, 0, 0, 0, pad, 0))
+        v = F.pad(v, (0, 0, 0, 0, pad, 0))
+        k_pos = F.pad(k_pos, (pad, 0), value=-(window + 1))
+
+    def one(i, qi, qpos_i):
+        if banded:
+            ks = k[:, i * chunk:i * chunk + band]
+            vs = v[:, i * chunk:i * chunk + band]
+            kp = k_pos[i * chunk:i * chunk + band]
+        else:
+            ks, vs, kp = k, v, k_pos
+        mask = _attn_mask(qpos_i, kp, window, causal)
+        return _sdpa(cfg, qi, ks, vs, mask)
+
+    def chunk_out(i, qi, qpos_i):
+        return checkpoint(one, i, qi, qpos_i, use_reentrant=False)
+
+    if unroll:
+        outs = [chunk_out(i, q[:, i * chunk:(i + 1) * chunk],
+                          q_pos[i * chunk:(i + 1) * chunk]) for i in range(n)]
+        return torch.cat(outs, dim=1)
+    qr = q.reshape(B, n, chunk, H, hd).movedim(1, 0)             # (n,B,c,H,hd)
+    pr = q_pos.reshape(n, chunk)
+    outs = torch.stack([chunk_out(i, qr[i], pr[i]) for i in range(n)])
+    return outs.movedim(0, 1).reshape(B, T, H, hd)
+
+
 def attention(cfg, bc: BlockCfg, p, x, positions, mode, cache=None,
               cur_index=None):
     """Returns (out, new_cache).
@@ -186,9 +239,8 @@ def attention(cfg, bc: BlockCfg, p, x, positions, mode, cache=None,
             out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                   causal=causal, window=bc.window)
         elif cfg.attn_chunk_q and T > cfg.attn_chunk_q:
-            raise NotImplementedError(
-                "q-chunked attention (attn_chunk_q) is not ported; use "
-                "use_pallas=True or attn_chunk_q=0")
+            out = _sdpa_chunked(cfg, q, k, v, pos, pos, bc.window, causal,
+                                cfg.attn_chunk_q, cfg.attn_chunk_unroll)
         else:
             mask = _attn_mask(pos, pos, bc.window, causal)
             out = _sdpa(cfg, q, k, v, mask)

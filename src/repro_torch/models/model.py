@@ -1,22 +1,33 @@
-"""Model-level public API, serving half (port of ``repro/models/model.py``).
+"""Model-level public API (port of ``repro/models/model.py``).
 
   param_defs / init_params        declarative params
   init_serving_params             params drawn in their serving dtypes
+  forward_train / make_train_step training
+  make_micro_step / make_apply_step  microbatched training in two steps
   prefill / decode_step           serving
+  batch_defs / input_specs        TensorSpec stand-ins for a cell's inputs
   spec_zeros                      zero caches from SpecDefs
 
-Training (``forward_train`` and the step factories) is not ported yet.
-``init_params``, ``init_serving_params`` and ``spec_zeros`` put their
-tensors on the card unless the caller passes ``device="cpu"``.
+Training runs the JAX package's plain numerics: that package trains on its
+jnp path, since ``jax.grad`` cannot go through its Pallas kernels, and the
+port's kernel wrappers raise under grad in the same way
+(``repro_torch.kernels.refuse_grad``). Gradients reach the float32 master
+params through ``cast_params``. Sharding arguments (``rules``, ``mesh``)
+raise: distribution is not ported.
+``init_params``, ``init_serving_params``, ``spec_zeros`` and ``input_specs``
+put their tensors on the card unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.prewarm import TensorSpec
 from repro_torch.models import params as prm
 from repro_torch.models import transformer as tfm
-from repro_torch.models.transformer import _is_spec
+from repro_torch.models.transformer import SpecDef, _is_spec, cache_defs
 from repro_torch.models.tree import tree_map
+
+AUX_LOSS_WEIGHT = 0.01
 
 
 # ---------------------------------------------------------------------------
@@ -45,6 +56,50 @@ def init_serving_params(cfg, generator: torch.Generator, device="cuda"):
 # ---------------------------------------------------------------------------
 # forward passes
 # ---------------------------------------------------------------------------
+def _ce_terms(cfg, params, x, labels):
+    """Cross-entropy pieces for hidden states x vs labels: (nll_sum, n_tok),
+    float32."""
+    logits = tfm.unembed(cfg, params, x)
+    lp = torch.log_softmax(logits.float(), dim=-1)
+    mask = (labels >= 0).float()
+    labels_safe = labels.clamp(min=0).long()
+    ll = torch.gather(lp, -1, labels_safe[..., None])[..., 0]
+    return -torch.sum(ll * mask), torch.sum(mask)
+
+
+def forward_train(cfg, params, batch):
+    """Returns (loss, metrics). Labels are pre-shifted by the data pipeline.
+
+    ``cfg.ce_chunk`` splits the cross entropy along the sequence, so the
+    (B, T, V) float32 logits are never whole; llava's labels cover only the
+    text after its patches; an MoE adds ``AUX_LOSS_WEIGHT`` times its
+    load-balance loss."""
+    p = tfm.cast_params(cfg, params)
+    x = tfm.embed_inputs(cfg, p, batch)
+    T = x.shape[1]
+    positions = torch.arange(T, dtype=torch.int32, device=x.device)
+    x, delta, _, aux = tfm.run_blocks(cfg, p, x, positions, "train")
+    _, x = tfm.add_norm(cfg, x, delta, p["final_norm"])
+    labels = batch["labels"]
+    if cfg.input_kind == "tokens+patches":
+        x = x[:, x.shape[1] - labels.shape[1]:, :]
+    Tl = labels.shape[1]
+    if cfg.ce_chunk and Tl > cfg.ce_chunk and Tl % cfg.ce_chunk == 0:
+        # seq-chunked CE: never materializes the full (B,T,V) float32 logits
+        c = cfg.ce_chunk
+        nll = ntok = 0.0
+        for i in range(Tl // c):
+            s, n = _ce_terms(cfg, p, x[:, i * c:(i + 1) * c, :],
+                             labels[:, i * c:(i + 1) * c])
+            nll, ntok = nll + s, ntok + n
+    else:
+        nll, ntok = _ce_terms(cfg, p, x, labels)
+    ce = nll / torch.clamp(ntok, min=1.0)
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=ce.device)
+    loss = ce + AUX_LOSS_WEIGHT * aux
+    return loss, {"ce": ce, "aux": aux, "tokens": ntok.to(torch.int32)}
+
+
 def prefill(cfg, params, batch):
     """Full-sequence forward that also returns the layer caches.
 
@@ -84,10 +139,157 @@ def decode_step(cfg, params, token, caches, cur_index):
 
 
 # ---------------------------------------------------------------------------
-# spec helpers
+# train step factories
 # ---------------------------------------------------------------------------
+def value_and_grad(cfg, params, batch):
+    """((loss, metrics), grads): ``jax.value_and_grad`` of ``forward_train``
+    with respect to ``params``. The grads are new tensors in the params'
+    dtypes; the params themselves get no ``.grad`` and are not changed (the
+    graph runs on detached aliases of them)."""
+    leaves = []
+
+    def alias(t):
+        leaves.append(t.detach().requires_grad_())
+        return leaves[-1]
+    live = tree_map(alias, params)
+    loss, metrics = forward_train(cfg, live, batch)
+    grads = torch.autograd.grad(loss, leaves)
+    it = iter(grads)
+    return ((loss.detach(), {k: v.detach() for k, v in metrics.items()}),
+            tree_map(lambda _: next(it), params))
+
+
+def _split(batch, n):
+    """``batch`` as n microbatches along its leading axis."""
+    parts = {k: v.reshape((n, v.shape[0] // n) + tuple(v.shape[1:]))
+             for k, v in batch.items()}
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+
+
+def make_train_step(cfg, optimizer, num_microbatches: int = 1):
+    """(params, opt_state, batch, step) -> (params, opt_state, metrics).
+
+    ``num_microbatches > 1`` accumulates float32 gradients over the
+    microbatches in turn (memory, not throughput); the loss is their mean,
+    the other metrics the last one's. The optimizer updates the params and
+    its state in place and returns them."""
+
+    def train_step(params, opt_state, batch, step):
+        if num_microbatches == 1:
+            (loss, metrics), grads = value_and_grad(cfg, params, batch)
+        else:
+            gsum = tree_map(lambda t: torch.zeros(t.shape, dtype=torch.float32,
+                                                  device=t.device), params)
+            losses = []
+            for mb in _split(batch, num_microbatches):
+                (mb_loss, metrics), g = value_and_grad(cfg, params, mb)
+                tree_map(lambda a, b: a.add_(b), gsum, g)
+                losses.append(mb_loss)
+            grads = tree_map(lambda g: g / num_microbatches, gsum)
+            loss = torch.mean(torch.stack(losses))
+        params, opt_state, gnorm = optimizer.update(params, opt_state, grads,
+                                                    step)
+        metrics = dict(metrics, loss=loss, grad_norm=gnorm)
+        return params, opt_state, metrics
+
+    return train_step
+
+
+def make_micro_step(cfg):
+    """(params, grad_acc, batch_micro) -> (grad_acc', (loss, metrics)).
+
+    grad_acc mirrors params in float32; this microbatch's grads are added
+    into it in place (the JAX package donates it)."""
+
+    def micro_step(params, grad_acc, batch):
+        (loss, metrics), grads = value_and_grad(cfg, params, batch)
+        tree_map(lambda a, g: a.add_(g.float()), grad_acc, grads)
+        return grad_acc, (loss, metrics)
+
+    return micro_step
+
+
+def make_apply_step(cfg, optimizer, num_microbatches: int):
+    """(params, opt_state, grad_acc, step) -> (params', opt_state', zeros,
+    gnorm); grad_acc is zeroed in place and returned as ``zeros``."""
+
+    def apply_step(params, opt_state, grad_acc, step):
+        grads = tree_map(lambda g: g / float(num_microbatches), grad_acc)
+        params, opt_state, gnorm = optimizer.update(params, opt_state, grads,
+                                                    step)
+        return params, opt_state, tree_map(torch.zero_, grad_acc), gnorm
+
+    return apply_step
+
+
+def grad_acc_defs(pdefs):
+    return tree_map(lambda d: prm.ParamDef(d.shape, d.axes, "zeros"), pdefs,
+                    is_leaf=lambda x: isinstance(x, prm.ParamDef))
+
+
+# ---------------------------------------------------------------------------
+# spec helpers (SpecDef -> TensorSpec)
+# ---------------------------------------------------------------------------
+def _no_sharding(rules, mesh):
+    if rules is not None or mesh is not None:
+        raise NotImplementedError(
+            "sharding rules and meshes wait for the distribution item of the "
+            "port (ROADMAP queue 1); pass rules=None, mesh=None")
+
+
+def spec_structs(defs, rules=None, mesh=None, device="cuda"):
+    """``TensorSpec`` stand-ins of ``defs`` on ``device`` (the JAX
+    package's ``ShapeDtypeStruct``s)."""
+    _no_sharding(rules, mesh)
+    dev = str(prm.check_device(device))
+    return tree_map(
+        lambda d: TensorSpec(tuple(d.shape), getattr(torch, d.dtype), dev),
+        defs, is_leaf=_is_spec)
+
+
 def spec_zeros(defs, device="cuda"):
     dev = prm.check_device(device)
     return tree_map(
         lambda d: torch.zeros(d.shape, dtype=getattr(torch, d.dtype), device=dev),
         defs, is_leaf=_is_spec)
+
+
+# ---------------------------------------------------------------------------
+# batch / input specs per (arch x shape) cell
+# ---------------------------------------------------------------------------
+def batch_defs(cfg, shape) -> dict:
+    """SpecDefs for one batch of the given ShapeSpec (train/prefill kinds)."""
+    B, T = shape.global_batch, shape.seq_len
+    cdt = cfg.compute_dtype
+    if cfg.input_kind == "frames":
+        d = {"frames": SpecDef((B, T, cfg.d_model), ("batch", "seq", None), cdt)}
+        if shape.kind == "train":
+            d["labels"] = SpecDef((B, T), ("batch", "seq"), "int32")
+        return d
+    if cfg.input_kind == "tokens+patches":
+        P_ = cfg.num_patches
+        Ttxt = T - P_
+        d = {"tokens": SpecDef((B, Ttxt), ("batch", "seq"), "int32"),
+             "patches": SpecDef((B, P_, cfg.d_model), ("batch", "seq", None), cdt)}
+        if shape.kind == "train":
+            d["labels"] = SpecDef((B, Ttxt), ("batch", "seq"), "int32")
+        return d
+    d = {"tokens": SpecDef((B, T), ("batch", "seq"), "int32")}
+    if shape.kind == "train":
+        d["labels"] = SpecDef((B, T), ("batch", "seq"), "int32")
+    return d
+
+
+def decode_input_defs(cfg, shape) -> dict:
+    """SpecDefs for one decode step: token + caches at capacity seq_len."""
+    B, T = shape.global_batch, shape.seq_len
+    return {"token": SpecDef((B, 1), ("batch", "seq"), "int32"),
+            "caches": cache_defs(cfg, B, T),
+            "cur_index": SpecDef((), (), "int32")}
+
+
+def input_specs(cfg, shape, rules=None, mesh=None, device="cuda") -> dict:
+    """TensorSpec stand-ins for every input of the cell's step fn."""
+    if shape.kind == "decode":
+        return spec_structs(decode_input_defs(cfg, shape), rules, mesh, device)
+    return spec_structs(batch_defs(cfg, shape), rules, mesh, device)

@@ -11,9 +11,12 @@ layers (``num_layers % pattern``) run unstacked.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                     create_selective_checkpoint_contexts)
 
 from repro_torch.dist.sharding import shard
 from repro_torch.models.griffin import rglru_block, rglru_cache_specs, rglru_defs
@@ -115,10 +118,42 @@ def apply_block(cfg, kind, p, x, positions, mode, cache=None, cur_index=None):
 # ---------------------------------------------------------------------------
 # the stack (loop over stacked cycles + unstacked remainder)
 # ---------------------------------------------------------------------------
+def _save_dots(ctx, op, *args, **kwargs):
+    """``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``: keep
+    the output of a matmul without batch dims (``mm``, ``addmm``, or a
+    ``bmm`` of batch 1, which is what ``torch.einsum`` makes of one) and
+    recompute everything else."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default) or (
+            op == torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(kind, body):
+    """``body`` under non-reentrant activation checkpointing (the JAX
+    package's ``jax.checkpoint`` of the scanned cycle): ``"full"`` saves
+    only the cycle's inputs and recomputes the rest in the backward pass;
+    ``"dots"`` also saves the outputs of matmuls without batch dims. The
+    deferred residual (``delta``) is one of the inputs and outputs, so the
+    region's boundary is the whole of the stream."""
+    if kind == "full":
+        return functools.partial(checkpoint, body, use_reentrant=False)
+    if kind == "dots":
+        return functools.partial(
+            checkpoint, body, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _save_dots))
+    raise ValueError(f"remat {kind!r}: choose none, full or dots")
+
+
 def run_blocks(cfg, params, x, positions, mode, caches=None, cur_index=None):
     """Returns (x, delta, new_caches, aux_total): the stack's output is
     ``x + delta``, the last block's residual add left to the final norm
     (``add_norm``).
+
+    In train mode ``cfg.remat`` ("full" or "dots") checkpoints each
+    stacked cycle (``_remat``); as in the JAX package, the unstacked
+    remainder layers are not checkpointed.
 
     Prefill stacks the per-layer caches along the leading ``layers`` axis.
     Decode writes each layer's new KV (or conv window and recurrent state)
@@ -136,17 +171,31 @@ def run_blocks(cfg, params, x, positions, mode, caches=None, cur_index=None):
         cyc_p = blocks_p["cycle"]
         cyc_c = None if caches is None else caches.get("cycle")
         per_layer = []
-        for i in range(n_cyc):
-            p_i = tree_map(lambda a: a[i], cyc_p)
-            c_i = None if cyc_c is None else tree_map(lambda a: a[i], cyc_c)
-            new_c = {}
+
+        def body(x, delta, p_i, c_i):
+            new_c, aux_c = {}, 0.0
             for j, kind in enumerate(pattern):
                 cj = None if c_i is None else c_i[f"p{j}"]
                 x, delta, cj_new, aux = block_deferred(
                     cfg, kind, p_i[f"p{j}"], x, positions, mode, cj, cur_index,
                     delta)
                 new_c[f"p{j}"] = cj_new
-                aux_total = aux_total + aux
+                aux_c = aux_c + aux
+            return x, delta, new_c, aux_c
+
+        if mode == "train" and cfg.remat != "none":
+            body = _remat(cfg.remat, body)
+        # each layer's slice of the stacked params as a view from one
+        # ``unbind`` a leaf: its backward stacks the slices' grads once,
+        # where ``a[i]`` would put each into a zero tensor of the whole stack
+        slices = []
+        tree_map(lambda a: slices.append(a.unbind(0)), cyc_p)
+        for i in range(n_cyc):
+            it = iter(slices)
+            p_i = tree_map(lambda _: next(it)[i], cyc_p)
+            c_i = None if cyc_c is None else tree_map(lambda a: a[i], cyc_c)
+            x, delta, new_c, aux = body(x, delta, p_i, c_i)
+            aux_total = aux_total + aux
             per_layer.append(new_c)
         if mode == "prefill":
             new_caches["cycle"] = tree_map(lambda *ls: torch.stack(ls),
