@@ -75,8 +75,8 @@ class ArchConfig:
                              # partial-sum all-reduce crosses ranks)
     attn_chunk_q: int = 0         # 0 = full-score attention; >0 = flash-style
                                   # q-chunked attention (memory O(chunk*S))
-    attn_chunk_unroll: bool = True  # python-unrolled chunks (exact HLO flop
-                                    # accounting) vs lax.scan (small HLO)
+    attn_chunk_unroll: bool = True  # JAX: unrolled chunks vs lax.scan; the
+                                    # eager port loops either way (no effect)
     ce_chunk: int = 0             # 0 = full logits; >0 = seq-chunked CE loss
     remat: str = "none"           # none | full | dots
     scan_layers: bool = True

@@ -157,7 +157,7 @@ def _sdpa(cfg, q, k, v, mask):
     return out.reshape(B, T, H, hd)
 
 
-def _sdpa_chunked(cfg, q, k, v, q_pos, k_pos, window, causal, chunk, unroll):
+def _sdpa_chunked(cfg, q, k, v, q_pos, k_pos, window, causal, chunk):
     """Flash-style q-chunked attention: scores stay O(chunk x S).
 
     For sliding-window layers the K/V are sliced to the band
@@ -167,12 +167,11 @@ def _sdpa_chunked(cfg, q, k, v, q_pos, k_pos, window, causal, chunk, unroll):
     ``@jax.checkpoint``): the backward pass recomputes the chunk's score
     tile instead of saving it.
 
-    ``unroll`` True slices q chunk by chunk; False walks the chunks of one
-    (n, B, chunk, H, hd) view, as the JAX package's ``lax.scan`` does. Both
-    run the same ops on the same values.
+    ``cfg.attn_chunk_unroll`` picks unrolled chunks or a ``lax.scan`` in the
+    JAX package. Eager PyTorch has no such split: the chunks are a Python
+    loop either way, so the field is accepted and has no effect here.
     """
-    B, T, H, hd = q.shape
-    S = k.shape[1]
+    T, S = q.shape[1], k.shape[1]
     n = T // chunk
     assert T % chunk == 0, (T, chunk)
 
@@ -196,17 +195,10 @@ def _sdpa_chunked(cfg, q, k, v, q_pos, k_pos, window, causal, chunk, unroll):
         mask = _attn_mask(qpos_i, kp, window, causal)
         return _sdpa(cfg, qi, ks, vs, mask)
 
-    def chunk_out(i, qi, qpos_i):
-        return checkpoint(one, i, qi, qpos_i, use_reentrant=False)
-
-    if unroll:
-        outs = [chunk_out(i, q[:, i * chunk:(i + 1) * chunk],
-                          q_pos[i * chunk:(i + 1) * chunk]) for i in range(n)]
-        return torch.cat(outs, dim=1)
-    qr = q.reshape(B, n, chunk, H, hd).movedim(1, 0)             # (n,B,c,H,hd)
-    pr = q_pos.reshape(n, chunk)
-    outs = torch.stack([chunk_out(i, qr[i], pr[i]) for i in range(n)])
-    return outs.movedim(0, 1).reshape(B, T, H, hd)
+    outs = [checkpoint(one, i, q[:, i * chunk:(i + 1) * chunk],
+                       q_pos[i * chunk:(i + 1) * chunk], use_reentrant=False)
+            for i in range(n)]
+    return torch.cat(outs, dim=1)
 
 
 def attention(cfg, bc: BlockCfg, p, x, positions, mode, cache=None,
@@ -240,7 +232,7 @@ def attention(cfg, bc: BlockCfg, p, x, positions, mode, cache=None,
                                   causal=causal, window=bc.window)
         elif cfg.attn_chunk_q and T > cfg.attn_chunk_q:
             out = _sdpa_chunked(cfg, q, k, v, pos, pos, bc.window, causal,
-                                cfg.attn_chunk_q, cfg.attn_chunk_unroll)
+                                cfg.attn_chunk_q)
         else:
             mask = _attn_mask(pos, pos, bc.window, causal)
             out = _sdpa(cfg, q, k, v, mask)

@@ -93,10 +93,13 @@ class Trainer:
         the live params, its grads dropped. The params and optimizer state
         are left bit for bit as they were, and no second copy of them is
         made (the cache's stand-ins are of the batch only). The optimizer's
-        update is not warmed: it would write the live state. Returns once
-        warm."""
+        update is not warmed: it would write the live state. Called before
+        any state exists, it first draws the state and restores the newest
+        checkpoint, as ``run`` would, so a later ``run`` resumes. Returns
+        once warm."""
         if self.params is None:
             self.init_state()
+            self.maybe_restore()
         step_fn = self._step_fn or self._build_step()
         abstract = {k: TensorSpec(tuple(np.shape(v)), torch.as_tensor(v).dtype,
                                   str(self.device))

@@ -1,7 +1,8 @@
 """The training options of the port's model that change how the loss is
 computed but not its value, each against the port without it and against
 the JAX package with it: the seq-chunked cross entropy (``ce_chunk``),
-q-chunked attention (``attn_chunk_q``, unrolled and looped; banded K/V
+q-chunked attention (``attn_chunk_q`` at both ``attn_chunk_unroll``
+values: the JAX package unrolls or scans, the port loops alike; banded K/V
 slices for gemma3's local layers at window 8; these re-point
 ``test_models.py``'s ``test_ce_chunking_equals_full``,
 ``test_chunked_attention_equals_full`` and

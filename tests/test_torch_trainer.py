@@ -65,8 +65,10 @@ def test_loss_decreases(cfg, tmp_path):
     assert last < first, (first, last)
 
 
-def test_restart_resumes_identically(cfg, tmp_path):
-    """12 straight steps == 6 steps + crash + restore + 6 steps, exactly."""
+@pytest.mark.parametrize("prewarm", [False, True], ids=["run", "prewarm-then-run"])
+def test_restart_resumes_identically(cfg, tmp_path, prewarm):
+    """12 straight steps == 6 steps + crash + restore + 6 steps, exactly;
+    also when the fresh trainer is prewarmed before it runs."""
     t1 = trainer(cfg, tcfg(tmp_path / "a"))
     log1 = t1.run(12)
 
@@ -74,6 +76,10 @@ def test_restart_resumes_identically(cfg, tmp_path):
     t2.run(6)
     # "crash": fresh trainer object, same checkpoint dir
     t3 = trainer(cfg, tcfg(tmp_path / "b"))
+    if prewarm:
+        t3.prewarm({"tokens": np.zeros((4, 32), np.int32),
+                    "labels": np.zeros((4, 32), np.int32)})
+        assert t3.step == 6
     log3 = t3.run(6)
     assert t3.step == 12
     ref = [m["loss"] for m in log1[6:]]
