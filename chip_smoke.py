@@ -154,17 +154,34 @@ no result):
               tests/test_torch_train_step.py holds them; (c) the restart
               drill at that depth in bf16: 12 straight steps against 6, a
               fresh Trainer on the same directory, 6 more (rtol 1e-5)
+ 14. mesh     distribution: (a) after qwen3-1.7b's phases 4-7, on its
+              weights as DTensors on make_host_mesh() ((1, 1) on one card),
+              the README Quickstart's topology (an edge client without a
+              mesh, prefill and decode clouds bound to the mesh): the
+              federated workflow and ServingEngine's batching with
+              use_pallas, exact kernel launches, every request's tokens
+              equal to phases 4-5's; a prefill and 8 decode steps unmeshed
+              and meshed in turns (walls reported, logits at the bf16 gate);
+              (b) after phase 13, Trainer(mesh=make_host_mesh()) on
+              qwen3-1.7b for 4 steps, remesh onto a new host mesh (params,
+              m, v, count bit-identical), 4 more, the losses equal phase
+              13's first 8 (rtol 1e-5); (c) the dry-run of four cells
+              (qwen3-1.7b train_4k and decode_32k, granite train_4k,
+              recurrentgemma prefill_32k) on the fake 256- and 512-GPU
+              meshes, in a subprocess started after the build (it shares
+              the host's cores with phases 3-14), one roofline line a
+              cell, the invariants of tests/test_dryrun.py
 Then one JSON line describing every kernel (launches counted over the main
-paths: serving and batching of the ten models, phases 11 (b) and 12, and
-training and 13 (d)'s forward for flash_attention, ssd_scan, rglru_scan and
-rmsnorm, the simulator, the recomposition and phase 11's (a, c, d) for
-cold_scan), the card's name and power limit, and the last line {"ok":
-true, "device": {...}}.
+paths: serving and batching of the ten models, phases 11 (b) and 12,
+training and 13 (d)'s forward, and phase 14's meshed serving and training
+for flash_attention, ssd_scan, rglru_scan and rmsnorm, the simulator, the
+recomposition and phase 11's (a, c, d) for cold_scan), the card's name and
+power limit, and the last line {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --only kernels,ssd_scan
 
 runs phases 1-2 and the named ones of kernels, ssd_scan, rglru_scan,
-rmsnorm, cold_scan, obs, jobs and train only (a short call to bring up a
+rmsnorm, cold_scan, obs, jobs, train and mesh only (a short call to bring up a
 kernel or a phase), prints their results and no final line. ``--only tile_cost``
 times one kv tile of the wgmma flash kernel at d = 64, 128, 256, a
 diagnostic no default run makes.
@@ -232,6 +249,9 @@ from repro_torch.obs import (MetricsRegistry, SloSpec, SloTracker,  # noqa: E402
                              extract_critical_path, instrument, write_chrome_trace)
 from repro_torch.serving import Request, ServingEngine, pad_cache  # noqa: E402
 from repro_torch.data import SyntheticCorpus, make_train_iterator  # noqa: E402
+from repro_torch.core import bind_sharding  # noqa: E402
+from repro_torch.dist import sharding as shd  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.optim import AdamW, AdamWConfig, cosine_schedule  # noqa: E402
 from repro_torch.train import Trainer, TrainerConfig  # noqa: E402
 
@@ -1022,6 +1042,7 @@ def memory_mark(record, name):
 
 
 def greedy(logits) -> int:
+    logits = shd.full(logits)  # a DTensor's whole (a mesh's serving path)
     if not bool(torch.isfinite(logits).all()):
         raise AssertionError("non-finite logits")
     return int(torch.argmax(logits[0]))
@@ -1146,7 +1167,8 @@ def deploy_serving(dep, cfg, params, seen=None) -> InFlight:
         pos = len(payload) + (cfg.num_patches if "patches" in batch else 0)
         caches = pad_cache(caches, serve_len(cfg), pos, cfg=cfg)
         key = f"kv/{next(keys)}"
-        dep.store.put(key, tree_map(lambda t: t.cpu(), caches), region="us-east")
+        dep.store.put(key, tree_map(lambda t: shd.full(t).cpu(), caches),
+                      region="us-east")
         return {"first_tok": tok, "kv_key": key, "pos": pos}
 
     def decode_step(token, caches, cur):
@@ -1155,6 +1177,10 @@ def deploy_serving(dep, cfg, params, seen=None) -> InFlight:
     def decode_fn(payload, data):
         host_caches, _ = dep.store.get(payload["kv_key"], "us-west")
         caches = tree_map(lambda t: t.to(DEV), host_caches)
+        mesh, rules = shd.current_sharding()  # the decode platform's, if any
+        if mesh is not None:
+            caches = M.distribute_params(caches, cache_defs(cfg, 1, serve_len(cfg)),
+                                         rules, mesh)
         tok, cur = payload["first_tok"], payload["pos"]
         toks = [tok]
         for _ in range(NEW_TOKENS - 1):
@@ -1191,15 +1217,16 @@ def check_encoded(out, V, what):
         raise AssertionError(f"{what}: bad encoder output {out}")
 
 
-def phase_federated(cfg, params, prompts):
-    """The federated workflow, one request per prompt (cold, then warm). A
+def phase_federated(cfg, params, prompts, registry=None):
+    """The federated workflow, one request per prompt (cold, then warm), on
+    ``registry`` (``serving_registry()`` where None). A
     model with a data dependency gets each request's tensor put in the
     store (us-east) and named in its spec; the tensors its steps received
     must be on the card and equal the stored ones bit for bit. hubert's
     requests are its prompts' indices: the frames are the input."""
     V = cfg.vocab_size
     seen, stored = {}, {}
-    with Deployment(serving_registry()) as dep:
+    with Deployment(registry or serving_registry()) as dep:
         deploy_serving(dep, cfg, params, seen)
         results = []
         for i, prompt in enumerate(prompts):
@@ -1226,6 +1253,7 @@ def phase_federated(cfg, params, prompts):
                 f"total_s={r.total_s:.4f} | {tl}")
             results.append({"prompt": len(prompt) if cfg.supports_decode else 0,
                             "data": ref.key if ref else None, "total_s": r.total_s,
+                            "tokens": r.outputs if cfg.supports_decode else None,
                             "timeline": {n: {k: v for k, v in t.items()
                                              if isinstance(v, float)}
                                          for n, t in r.timeline.items()}})
@@ -1281,7 +1309,8 @@ def phase_batching(cfg, params):
            "mean_ttft_s": float(np.mean(stats["ttft_s"])),
            "decode_tokens": decode_tokens, "decode_s": decode_s[0],
            "decode_tok_s": decode_tokens / decode_s[0], "wall_s": wall,
-           "prompts": [len(r.prompt) for r in reqs]}
+           "prompts": [len(r.prompt) for r in reqs],
+           "tokens": [list(r.tokens) for r in reqs]}
     log(f"[batching] done={res['done']} prefills={res['prefills']} "
         f"decode_steps={res['decode_steps']} mean TTFT={res['mean_ttft_s']:.4f} s "
         f"decode {decode_tokens} tokens in {res['decode_s']:.4f} s = "
@@ -1592,7 +1621,7 @@ def phase_profile(cfg, params, batch):
     return out
 
 
-NORM_AB_TURNS = ("kernel", "plain", "plain", "kernel") * 6
+NORM_AB_TURNS = ("kernel", "plain", "plain", "kernel") * 2
 
 
 def ab_turn(cfg, params, tokens, caches, tok, n):
@@ -1627,7 +1656,7 @@ def phase_norm_ab(cfg, params, prompt) -> dict:
     """The rmsnorm kernel end to end: one warm prefill and NORM_AB_DECODE
     decode steps (host clock, each ended by a synchronise) with every norm
     through the kernel (with its prologues) and, everything else equal,
-    through the plain versions, in turns (kernel, plain, plain, kernel) x 6
+    through the plain versions, in turns (kernel, plain, plain, kernel) x 2
     (ab_turn); medians and minima."""
     tokens = torch.as_tensor(prompt, device=DEV)[None]
     _, caches = M.prefill(cfg, params, {"tokens": tokens})
@@ -1685,7 +1714,7 @@ class unfused_prologues:
         return False
 
 
-PROLOGUE_AB_TURNS = ("fused", "unfused", "unfused", "fused") * 6
+PROLOGUE_AB_TURNS = ("fused", "unfused", "unfused", "fused") * 2
 
 
 def phase_prologue_ab(cfg, params, prompt) -> dict:
@@ -1693,7 +1722,7 @@ def phase_prologue_ab(cfg, params, prompt) -> dict:
     NORM_AB_DECODE decode steps (host clock, each ended by a synchronise)
     with the residual adds and mamba2's gate fused into the norm launches
     and, everything else equal, as eager ops around them (unfused_prologues),
-    in turns (fused, unfused, unfused, fused) x 6 (ab_turn); medians and
+    in turns (fused, unfused, unfused, fused) x 2 (ab_turn); medians and
     minima. Then each
     variant's device kernels a decode step, from the profiler."""
     tokens = torch.as_tensor(prompt, device=DEV)[None]
@@ -2135,7 +2164,7 @@ def phase_scorer_scan(args) -> dict:
 # ---------------------------------------------------------------------------
 OBS_SAMPLE = 64  # traced requests of the sweep's first seed
 OBS_SWEEP_TURNS = ("untraced", "traced", "traced", "untraced") * 3
-OBS_SERVE_TURNS = ("untraced", "traced", "traced", "untraced") * 2
+OBS_SERVE_TURNS = ("untraced", "traced", "traced", "untraced")
 OBS_ATOL = 1e-9  # torch against numpy traces at sigma 0, float64
 OBS_REL = 1e-9  # an attribution against its trace's total
 OBS_PATH_REL = 0.05  # the walked path against the request's total_s
@@ -2791,6 +2820,33 @@ def serve_obs_jobs(cfg, params, prompts) -> dict:
             "jobs": phase_jobs(cfg, params)}
 
 
+def check_launches(arch, per_prefill, fed, total, passes, fed_passes, n_prompts,
+                   n_batched):
+    """Exact kernel launches over the federated requests (``fed``) and then
+    the batching (``total``): one per layer of a kernel's block kind per
+    prefill, rmsnorm once per norm per forward pass."""
+    n_pass = passes["prefill"] + passes["decode"]
+    log(f"[serving] {arch} launches per prefill {per_prefill}: federated {fed} "
+        f"over {n_prompts} prefills; batching "
+        f"{ {n: total[n] - fed[n] for n in total} } over {n_batched} prefills; "
+        f"forward passes {passes} (federated {fed_passes})")
+    if passes["prefill"] != n_prompts + n_batched:
+        raise AssertionError(f"{arch}: {passes['prefill']} prefills counted, "
+                             f"{n_prompts + n_batched} made")
+    for n, want in per_prefill.items():
+        if n == "rmsnorm":  # every forward pass, prefill or decode
+            if total[n] != want * n_pass:
+                raise AssertionError(f"{arch}: {total[n]} rmsnorm launches != "
+                                     f"{want} per pass over {n_pass} passes")
+            continue
+        if fed[n] != want * n_prompts:
+            raise AssertionError(f"{arch}: {fed[n]} {n} launches != {want} per "
+                                 f"prefill over {n_prompts} prefills")
+        if total[n] - fed[n] != want * n_batched:
+            raise AssertionError(f"{arch}: batched prefills did not each launch "
+                                 f"{n} {want} times")
+
+
 def serve_model(arch) -> dict:
     """The serving path of one model at full width and depth: the federated
     workflow and (for a decoder) continuous batching with every kernel
@@ -2819,26 +2875,8 @@ def serve_model(arch) -> dict:
     n_batched = batching["prefills"] + 1 if batching else 0  # + the prewarm prefill
     if batching:
         memory_mark(memory, "batching")
-    n_pass = passes.n["prefill"] + passes.n["decode"]
-    log(f"[serving] {arch} launches per prefill {per_prefill}: federated {fed} "
-        f"over {len(prompts)} prefills; batching "
-        f"{ {n: total[n] - fed[n] for n in total} } over {n_batched} prefills; "
-        f"forward passes {passes.n} (federated {fed_passes})")
-    if passes.n["prefill"] != len(prompts) + n_batched:
-        raise AssertionError(f"{arch}: {passes.n['prefill']} prefills counted, "
-                             f"{len(prompts) + n_batched} made")
-    for n, want in per_prefill.items():
-        if n == "rmsnorm":  # every forward pass, prefill or decode
-            if total[n] != want * n_pass:
-                raise AssertionError(f"{arch}: {total[n]} rmsnorm launches != "
-                                     f"{want} per pass over {n_pass} passes")
-            continue
-        if fed[n] != want * len(prompts):
-            raise AssertionError(f"{arch}: {fed[n]} {n} launches != {want} per "
-                                 f"prefill over {len(prompts)} prefills")
-        if total[n] - fed[n] != want * n_batched:
-            raise AssertionError(f"{arch}: batched prefills did not each launch "
-                                 f"{n} {want} times")
+    check_launches(arch, per_prefill, fed, total, passes.n, fed_passes,
+                   len(prompts), n_batched)
 
     moe = None
     if cfg.num_experts:
@@ -2857,6 +2895,9 @@ def serve_model(arch) -> dict:
         norm_ab = phase_norm_ab(cfg, params, prompts[0])
         prologue_ab = phase_prologue_ab(cfg, params, prompts[0])
     extra = serve_obs_jobs(cfg, params, prompts) if arch == OBS_ARCH else {}
+    if arch == MESH_ARCH:
+        extra["mesh"] = phase_mesh_serving(cfg, params, prompts, requests, batching)
+        memory_mark(memory, "mesh")
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -3295,11 +3336,299 @@ def phase_train() -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 14: distribution
+# ---------------------------------------------------------------------------
+MESH_ARCH = "qwen3-1.7b"
+MESH_AB_TURNS = ("plain", "mesh", "mesh", "plain")
+MESH_AB_DECODE = 8
+MESH_TRAIN_STEPS = (4, 4)  # before the re-mesh, after it
+MESH_CKPT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                             "chip_smoke_mesh_ckpt")
+DRYRUN_CELLS = (("qwen3-1.7b", "train_4k"), ("qwen3-1.7b", "decode_32k"),
+                ("granite-moe-3b-a800m", "train_4k"), ("recurrentgemma-9b", "prefill_32k"))
+DRYRUN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                          "chip_smoke_dryrun")
+DRYRUN_TIMEOUT_S = 900
+
+
+def mesh_registry(mesh):
+    """The README Quickstart's topology over the card: the edge client
+    without a mesh, the prefill and decode clouds bound to ``mesh`` with
+    their workloads' rules."""
+    reg = PlatformRegistry()
+    reg.register(bind_sharding(Platform("client", "us-east", kind="edge",
+                                        native_prefetch=True, device="cpu"), mesh=mesh))
+    reg.register(bind_sharding(Platform("prefill-pod", "us-east", native_prefetch=True,
+                                        device=str(DEV)), mesh=mesh, workload="prefill"))
+    reg.register(bind_sharding(Platform("decode-pod", "us-west", native_prefetch=True,
+                                        device=str(DEV)), mesh=mesh, workload="decode"))
+    if reg.get("client").mesh is not None or any(
+            reg.get(n).mesh is not mesh for n in ("prefill-pod", "decode-pod")):
+        raise AssertionError("bind_sharding did not bind the Quickstart's topology")
+    return reg
+
+
+def mesh_ab(cfg, params, dparams, mesh, prompt) -> dict:
+    """A warm prefill and MESH_AB_DECODE greedy decode steps, unmeshed and
+    meshed (DTensor params, under the rules' context) in turns on the host
+    clock: the walls, the meshed logits' largest difference from the
+    unmeshed ones and the tokens of both."""
+    tokens = torch.as_tensor(prompt, device=DEV)[None]
+    ctx = {"plain": (shd.use_sharding(None, None), shd.use_sharding(None, None)),
+           "mesh": (shd.use_sharding(mesh, shd.rules_for("prefill")),
+                    shd.use_sharding(mesh, shd.rules_for("decode")))}
+    walls = {k: {"prefill": [], "decode": []} for k in ctx}
+    seqs, toks = {}, {}
+    for i, turn in enumerate(("plain", "mesh") + MESH_AB_TURNS):  # 2 warm-up turns
+        p = params if turn == "plain" else dparams
+        sync()
+        t0 = time.perf_counter()
+        with ctx[turn][0]:
+            lg, caches = M.prefill(cfg, p, {"tokens": tokens})
+            caches = pad_cache(caches, MAX_LEN, len(prompt), cfg=cfg)
+        seq, tok = [shd.full(lg)], [greedy(lg)]
+        t1 = time.perf_counter()
+        if turn == "mesh" and not shd.is_dtensor(lg):
+            raise AssertionError("the meshed prefill's logits are not a DTensor")
+        with ctx[turn][1]:
+            for j in range(MESH_AB_DECODE):
+                lg, caches = M.decode_step(
+                    cfg, p, torch.tensor([[tok[-1]]], dtype=torch.int32, device=DEV),
+                    caches, len(prompt) + j)
+                seq.append(shd.full(lg))
+                tok.append(greedy(lg))
+        t2 = time.perf_counter()
+        if i >= 2:
+            walls[turn]["prefill"].append(t1 - t0)
+            walls[turn]["decode"].append((t2 - t1) / MESH_AB_DECODE)
+        seqs[turn], toks[turn] = seq, tok
+    diff = max((a - b).abs().max().item() for a, b in zip(seqs["plain"], seqs["mesh"]))
+    scale = max(a.abs().max().item() for a in seqs["plain"])
+    med = {k: {w: statistics.median(v) for w, v in d.items()} for k, d in walls.items()}
+    return {"tokens": toks, "max_abs_diff": diff, "max_abs_logit": scale,
+            "walls_s": walls, "median_s": med,
+            "ratio": {w: med["mesh"][w] / med["plain"][w] for w in ("prefill", "decode")}}
+
+
+def phase_mesh_serving(cfg, params, prompts, requests, batching) -> dict:
+    """Phase 14 (a): qwen3-1.7b (use_pallas) served through the Quickstart's
+    topology over a host mesh of the card, (1, 1): the federated workflow
+    and the continuous batching with DTensor params, each kernel counter
+    at 0 just before and read just after (exact launches, as phases 4-5);
+    the greedy tokens of every request equal phases 4-5's; then the
+    unmeshed and meshed prefill and decode in turns (walls reported; the
+    logits gated at the serving bf16 gate)."""
+    t_phase = time.perf_counter()
+    mesh = make_host_mesh(device="cuda")
+    if shd.mesh_shape(mesh) != {"data": 1, "model": 1}:
+        raise AssertionError(f"host mesh {shd.mesh_shape(mesh)} on one card")
+    dparams = M.distribute_params(params, M.param_defs(cfg), shd.rules_for("prefill"),
+                                  mesh)
+    per_prefill = launches_per_prefill(cfg)
+    for k in MODEL_KERNELS.values():
+        k.launches = 0
+    with counting_passes() as passes:
+        fed_requests = phase_federated(cfg, dparams, prompts, mesh_registry(mesh))
+        fed, fed_passes = launch_counts(), dict(passes.n)
+        with shd.use_sharding(mesh, shd.rules_for("decode")):
+            bat = phase_batching(cfg, dparams)
+        total = launch_counts()
+    check_launches(f"{cfg.name} meshed", per_prefill, fed, total, passes.n, fed_passes,
+                   len(prompts), bat["prefills"] + 1)
+    got = [r["tokens"] for r in fed_requests]
+    want = [r["tokens"] for r in requests]
+    if got != want or bat["tokens"] != batching["tokens"]:
+        raise AssertionError(f"meshed tokens differ from phases 4-5's: federated "
+                             f"{got} vs {want}; batching {bat['tokens']} vs "
+                             f"{batching['tokens']}")
+    ab = mesh_ab(cfg, params, dparams, mesh, prompts[0])
+    if ab["tokens"]["mesh"] != ab["tokens"]["plain"]:
+        raise AssertionError(f"meshed greedy tokens {ab['tokens']['mesh']} != "
+                             f"unmeshed {ab['tokens']['plain']}")
+    tol = TOL[torch.bfloat16] * ab["max_abs_logit"]
+    if not ab["max_abs_diff"] <= tol:
+        raise AssertionError(f"meshed logits differ by {ab['max_abs_diff']} > {tol}")
+    del dparams
+    res = {"mesh": shd.mesh_shape(mesh), "requests": fed_requests, "batching": bat,
+           "launches": total, "passes": passes.n, "per_prefill": per_prefill, "ab": ab,
+           "wall_s": time.perf_counter() - t_phase}
+    log(f"[mesh] (a) {cfg.name} on host mesh {res['mesh']}: {len(prompts)} federated "
+        f"requests and {bat['done']} batched, tokens equal phases 4-5's; launches "
+        f"{total} over passes {passes.n}; prefill + {MESH_AB_DECODE} decode steps in "
+        f"turns: logits max_abs_diff {ab['max_abs_diff']:.4g} (gate {tol:.4g}), tokens "
+        f"equal; prefill wall {ab['median_s']['mesh']['prefill'] * 1e3:.2f} vs "
+        f"{ab['median_s']['plain']['prefill'] * 1e3:.2f} ms (x{ab['ratio']['prefill']:.3f}), "
+        f"decode step {ab['median_s']['mesh']['decode'] * 1e3:.2f} vs "
+        f"{ab['median_s']['plain']['decode'] * 1e3:.2f} ms (x{ab['ratio']['decode']:.3f}); "
+        f"{res['wall_s']:.1f} s")
+    return res
+
+
+def word_sums(tree) -> list:
+    """``state_checksum`` of each leaf's whole (a DTensor gathered), without
+    the version counters."""
+    return [c[:2] for c in state_checksum(tree_map(shd.full, tree))]
+
+
+def phase_mesh_train(losses13) -> dict:
+    """Phase 14 (b): Trainer(mesh=make_host_mesh()) on qwen3-1.7b at full
+    width and depth, phase 13's seed, batch and optimizer: 4 steps, remesh
+    onto a freshly built host mesh, 4 more. The params, m, v and count are
+    bit-identical across the re-mesh; the 8 losses equal phase 13's first 8
+    (rtol 1e-5); no port kernel launches (the plain path, as phase 13)."""
+    cfg = get_config(TRAIN_ARCH)
+    B, T = TRAIN_BATCH
+    shutil.rmtree(MESH_CKPT_DIR, ignore_errors=True)
+    tc = TrainerConfig(seq_len=T, global_batch=B, total_steps=sum(MESH_TRAIN_STEPS),
+                       checkpoint_every=sum(MESH_TRAIN_STEPS) + 1,
+                       checkpoint_dir=MESH_CKPT_DIR, adamw=TRAIN_ADAMW)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(DEV)
+    t_phase = time.perf_counter()
+    tr = Trainer(cfg, tc, mesh=make_host_mesh(device="cuda"))
+    for k in MODEL_KERNELS.values():
+        k.launches = 0
+    tr.run(MESH_TRAIN_STEPS[0])
+    state = {"params": tr.params, "opt": tr.opt_state}
+    before, count = word_sums(state), int(tr.opt_state["count"])
+    t0 = time.perf_counter()
+    tr.remesh(make_host_mesh(device="cuda"))
+    sync()
+    remesh_s = time.perf_counter() - t0
+    after = word_sums({"params": tr.params, "opt": tr.opt_state})
+    if after != before or int(tr.opt_state["count"]) != count:
+        raise AssertionError("remesh changed the params, m, v or count")
+    if not all(shd.is_dtensor(t) for t in tree_leaves(tr.params)):
+        raise AssertionError("the meshed trainer's params are not DTensors")
+    tr.run(MESH_TRAIN_STEPS[1])
+    launches = launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f"meshed training launched port kernels: {launches}")
+    losses = [m["loss"] for m in tr.metrics_log]
+    dts = [m["dt"] for m in tr.metrics_log]
+    want = losses13[:len(losses)]
+    if not np.allclose(losses, want, rtol=TRAIN_RTOL, atol=0):
+        raise AssertionError(f"meshed losses {losses} differ from phase 13's {want}")
+    peak = torch.cuda.max_memory_allocated(DEV)
+    ck = tr.ckpt.stats
+    del tr, state
+    shutil.rmtree(MESH_CKPT_DIR, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    res = {"arch": TRAIN_ARCH, "steps": list(MESH_TRAIN_STEPS), "losses": losses,
+           "phase13_losses": want, "max_rel_diff": max(
+               abs(a - b) / abs(b) for a, b in zip(losses, want)),
+           "step_s": dts, "step_median_s": statistics.median(dts), "remesh_s": remesh_s,
+           "peak_bytes": peak, "ckpt_snapshot_s": ck["blocked_s"],
+           "ckpt_write_s": ck["save_s"], "launches": launches, "wall_s": wall}
+    log(f"[mesh] (b) Trainer on the host mesh: {MESH_TRAIN_STEPS[0]} steps, remesh "
+        f"({remesh_s:.2f} s; params, m, v and count bit-identical), "
+        f"{MESH_TRAIN_STEPS[1]} more: losses " + " ".join(f"{x:.3f}" for x in losses)
+        + f" equal phase 13's first {len(losses)} (largest rel diff "
+        f"{res['max_rel_diff']:.3g}, rtol {TRAIN_RTOL:g}); step wall median "
+        f"{res['step_median_s'] * 1e3:.2f} ms (phase 13's (a): see [train]); peak "
+        f"{peak / 1e9:.2f} GB; two final checkpoints, snapshot {ck['blocked_s']:.2f} s, "
+        f"write {ck['save_s']:.2f} s; {wall:.1f} s")
+    return res
+
+
+def start_dryrun():
+    """Phase 14 (c), started: the dry-run of DRYRUN_CELLS on both H100 meshes
+    in a subprocess (its fake process group cannot share a process with the
+    card's NCCL group), on the host's cores while the card runs the other
+    phases. Its tensors are meta tensors, so its meshes take the CPU device
+    type and the card is hidden from it: a CUDA context of its own would
+    take memory that llava-next-34b's checks need."""
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.path.join(here, "src"), CUDA_VISIBLE_DEVICES="")
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--cells",
+         ",".join(f"{a}:{s}" for a, s in DRYRUN_CELLS), "--both-meshes",
+         "--device", "cpu", "--out-dir", DRYRUN_DIR],
+        cwd=here, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def phase_dryrun(proc) -> dict:
+    """Phase 14 (c), collected: every cell's roofline line, and the
+    invariants of tests/test_dryrun.py on each JSON (256 or 512 devices)."""
+    t0 = time.perf_counter()
+    try:
+        out, _ = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    waited = time.perf_counter() - t0
+    lines = [ln for ln in out.splitlines() if ln.startswith(("[dryrun]", "dry-run"))]
+    for ln in lines:
+        log(f"[mesh] (c) {ln}")
+    if proc.returncode != 0:
+        raise AssertionError(f"the dry-run failed (exit {proc.returncode}):\n"
+                             + out[-3000:])
+    cells = {}
+    for name in sorted(os.listdir(DRYRUN_DIR)):
+        with open(os.path.join(DRYRUN_DIR, name)) as f:
+            d = json.load(f)
+        r = d["roofline"]
+        if not (r["bottleneck"] in ("compute", "memory", "collective")
+                and d["flops_per_dev_step"] > 0
+                and r["step_s_lower_bound"] >= max(r["compute_s"], 1e-12) - 1e-12
+                and d["n_devices"] in (256, 512)):
+            raise AssertionError(f"dry-run cell {name} breaks the invariants: {d}")
+        cells[name[:-5]] = {k: d[k] for k in (
+            "mesh", "n_devices", "n_micro", "compile_s", "flops_per_dev_step",
+            "bytes_per_dev_step", "scan_correction_flops_dev", "peak_temp_bytes",
+            "useful_flops_ratio", "analytic_flops_dev", "collectives", "roofline")}
+    if len(cells) != 2 * len(DRYRUN_CELLS):
+        raise AssertionError(f"{len(cells)} dry-run cells written, "
+                             f"{2 * len(DRYRUN_CELLS)} run")
+    walls = [c["compile_s"] for c in cells.values()]
+    log(f"[mesh] (c) {len(cells)} cells on the 256- and 512-GPU fake meshes, invariants "
+        f"held; wall per cell {min(walls):.1f}-{max(walls):.1f} s (sum "
+        f"{sum(walls):.1f} s; waited {waited:.1f} s at the end)")
+    return {"cells": cells, "wall_per_cell_s": walls, "waited_s": waited}
+
+
+def phase_mesh_only() -> dict:
+    """``--only mesh``: phase 14 alone, with its own references: qwen3-1.7b
+    served unmeshed (phases 4-5) then meshed, 8 unmeshed training steps
+    then the meshed run, the dry-run."""
+    proc = start_dryrun()
+    try:
+        cfg = get_config(MESH_ARCH).replace(use_pallas=True)
+        params, _ = make_params(cfg)
+        prompts = serve_prompts(cfg)
+        requests = phase_federated(cfg, params, prompts)
+        batching = phase_batching(cfg, params)
+        serving = phase_mesh_serving(cfg, params, prompts, requests, batching)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        B, T = TRAIN_BATCH
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+        ref = Trainer(get_config(TRAIN_ARCH), TrainerConfig(
+            seq_len=T, global_batch=B, total_steps=8, checkpoint_every=9,
+            checkpoint_dir=CKPT_DIR, adamw=TRAIN_ADAMW), device=DEV)
+        losses = [m["loss"] for m in ref.run(sum(MESH_TRAIN_STEPS))]
+        del ref
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+        train = phase_mesh_train(losses)
+        return {"serving": serving, "train": train, "dryrun": phase_dryrun(proc)}
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+
+
 ONLY_PHASES = {"kernels": lambda: phase_kernels(), "ssd_scan": lambda: phase_ssd_scan(),
                "rglru_scan": lambda: phase_rglru_scan(),
                "rmsnorm": lambda: phase_rmsnorm(), "cold_scan": lambda: phase_cold_scan(),
                "tile_cost": lambda: phase_tile_cost(), "obs": phase_obs_only,
-               "jobs": phase_jobs_only, "train": lambda: phase_train()}
+               "jobs": phase_jobs_only, "train": lambda: phase_train(),
+               "mesh": phase_mesh_only}
 
 
 def main():
@@ -3331,6 +3660,17 @@ def main():
 
     smi = phase_device()
     ptxas = timed("build", phase_build)
+    dryrun_proc = start_dryrun()  # phase 14 (c), on the host's cores meanwhile
+    try:
+        main_phases(smi, ptxas, dryrun_proc, t_run, walls, timed)
+    finally:
+        if dryrun_proc.poll() is None:
+            dryrun_proc.kill()
+            dryrun_proc.communicate()
+
+
+def main_phases(smi, ptxas, dryrun_proc, t_run, walls, timed):
+    """Phases 3-14 and the result lines of a full run."""
     fa = timed("kernels", phase_kernels)
     ssd = timed("ssd_scan", phase_ssd_scan)
     rg = timed("rglru_scan", phase_rglru_scan)
@@ -3362,6 +3702,9 @@ def main():
     obs_served = next(m for m in served if m["arch"] == OBS_ARCH)
     walls["sim, adapt, obs"] = time.perf_counter() - t_rest
     train = timed("train", phase_train)
+    mesh_train = timed("mesh (b)", lambda: phase_mesh_train(train["full"]["losses"]))
+    dryrun = timed("mesh (c) wait", lambda: phase_dryrun(dryrun_proc))
+    mesh_served = next(m for m in served if m["arch"] == MESH_ARCH)["mesh"]
 
     def model_launches(name):
         return sum(m["launches"][name] for m in served)
@@ -3369,13 +3712,15 @@ def main():
     def served_launches(name) -> dict:
         """Launches by main path: serving and batching of the served models,
         the traced serving (11 b) and the jobs phase (12) of qwen3-1.7b,
-        training (13 a: none, the jnp path) and the no_grad forward_train
-        of 13 (d)."""
+        training (13 a: none, the jnp path), the no_grad forward_train
+        of 13 (d), and phase 14's meshed serving (a) and training (b)."""
         return {"serving": model_launches(name),
                 "obs": obs_served["obs"]["launches"][name],
                 "jobs": obs_served["jobs"]["launches"][name],
                 "train": train["full"]["launches"][name],
-                "train_forward_no_grad": train["full"]["forward_kernels"]["launches"][name]}
+                "train_forward_no_grad": train["full"]["forward_kernels"]["launches"][name],
+                "mesh_serving": mesh_served["launches"][name],
+                "mesh_train": mesh_train["launches"][name]}
 
     cold_paths = {"sim": sim_launches, "adapt": adapt_launches,
                   "obs_sweep": obs_sweep["launches"],
@@ -3466,7 +3811,9 @@ def main():
     }]
     for m in served:
         log(json.dumps({"serving": {k: v for k, v in m.items()
-                                    if k not in ("obs", "profiler", "jobs")}}))
+                                    if k not in ("obs", "profiler", "jobs", "mesh")}}))
+    log(json.dumps({"mesh": {"serving": mesh_served, "train": mesh_train,
+                             "dryrun": dryrun}}, default=str))
     log(json.dumps({"sim": sim, "adapt": adapt, "cold_scan": cs}))
     log(json.dumps({"obs": {"sweep": obs_sweep, "serving": obs_served["obs"],
                             "profiler": obs_served["profiler"],

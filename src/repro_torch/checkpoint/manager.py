@@ -16,7 +16,12 @@ checkpoint written by either package restores in the other.
     finish first: the port's optimizer updates the live tensors in place,
     so a copy still running on the thread would record a later step.
   - RESTORE: leaves are loaded, shape-checked against the target tree and
-    put on ``device`` (by default each target leaf's own device).
+    put on ``device`` (by default each target leaf's own device); a DTensor
+    target leaf comes back as a DTensor on its mesh in its placements (the
+    JAX package restores onto shardings).
+  - A DTensor leaf is saved whole: every rank gathers it (``full_tensor``,
+    a collective all ranks join), and only rank 0 of the default process
+    group writes.
 
 A bfloat16 leaf is written as the JAX package writes one: its raw 16-bit
 words, which ``np.load`` reads back as ``|V2``. ``restore`` turns such a
@@ -35,7 +40,15 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.models.tree import tree_map, tree_map_with_path
+from repro_torch.dist.sharding import is_dtensor
+from repro_torch.models.tree import tree_leaves, tree_map, tree_map_with_path
+
+
+def _writes(tree) -> bool:
+    """False on a rank other than 0 saving DTensors: rank 0 writes them."""
+    import torch.distributed as dist
+    return not (dist.is_initialized() and dist.get_rank() != 0
+                and any(is_dtensor(t) for t in tree_leaves(tree)))
 
 
 def _flatten(tree):
@@ -51,9 +64,12 @@ def _sanitize(keystr: str) -> str:
 
 
 def _snapshot(x):
-    """A host numpy copy of a leaf that shares no memory with it."""
+    """A host numpy copy of a leaf that shares no memory with it (all of a
+    DTensor, gathered)."""
     if isinstance(x, torch.Tensor):
         t = x.detach()
+        if is_dtensor(t):
+            t = t.full_tensor()
         t = t.cpu() if t.device.type != "cpu" else t.clone()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view("V2")
@@ -88,6 +104,9 @@ class CheckpointManager:
         t0 = time.perf_counter()
         host = _flatten(tree_map(_snapshot, tree))
         snap_s = time.perf_counter() - t0
+        if not _writes(tree):
+            self.stats["blocked_s"] += snap_s
+            return snap_s
 
         def write():
             t2 = time.perf_counter()
@@ -148,7 +167,8 @@ class CheckpointManager:
     def restore(self, step: int, target_tree, device=None):
         """Restore into the structure of ``target_tree`` (shapes checked) as
         tensors on ``device``, or on each target leaf's device if None (the
-        CPU for a leaf that is not a tensor)."""
+        CPU for a leaf that is not a tensor; a DTensor leaf as a DTensor in
+        its placements, each rank keeping its chunk)."""
         d = os.path.join(self.dir, f"step_{step}")
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
@@ -159,6 +179,11 @@ class CheckpointManager:
             arr = np.load(os.path.join(d, meta["file"]))
             assert tuple(arr.shape) == tuple(np.shape(leaf)), \
                 (key, arr.shape, np.shape(leaf))
+            if is_dtensor(leaf) and device is None:
+                from torch.distributed.tensor import distribute_tensor
+                t = _tensor(arr, meta["dtype"], leaf.device)
+                return distribute_tensor(t, leaf.device_mesh, leaf.placements,
+                                         src_data_rank=None)
             dev = device if device is not None else getattr(leaf, "device", "cpu")
             return _tensor(arr, meta["dtype"], dev)
         out = tree_map_with_path(load, target_tree)

@@ -39,7 +39,7 @@ class Platform:
     native_prefetch: bool = False  # provider-side poke interception (§4.4)
     allows_sync: bool = True  # public clouds: async only (§4.1)
     cold_start_s: float = 0.5  # modeled cold-start latency
-    mesh: Optional[object] = None  # device mesh (None = one device)
+    mesh: Optional[object] = None  # DeviceMesh (None = one device)
     rules: Optional[object] = None  # ShardingRules for this platform
     device: str = "cuda"  # torch device the platform's steps run on
 
@@ -68,7 +68,7 @@ def bind_sharding(
     if platform.kind == "edge":
         mesh = None  # edge nodes are single-device
     if rules is None:
-        multi_pod = mesh is not None and "pod" in mesh.shape
+        multi_pod = mesh is not None and "pod" in shd.mesh_shape(mesh)
         rules = shd.rules_for_platform(platform.kind, workload, multi_pod=multi_pod)
     return dataclasses.replace(platform, mesh=mesh, rules=rules)
 

@@ -31,11 +31,15 @@ import torch
 @dataclass(frozen=True)
 class TensorSpec:
     """Shape, dtype and device of an argument, without its data: the port's
-    ``jax.ShapeDtypeStruct``. The device defaults to the card."""
+    ``jax.ShapeDtypeStruct``. The device defaults to the card. A DTensor's
+    spec also carries its ``DeviceMesh`` and placements (the port's
+    ``NamedSharding``); its stand-in is then a DTensor."""
 
     shape: tuple
     dtype: torch.dtype = torch.float32
     device: str = "cuda"
+    mesh: object = None
+    placements: tuple = None
 
 
 def _flatten(tree, leaves: list) -> str:
@@ -79,6 +83,10 @@ def _example(tree):
     if isinstance(tree, (list, tuple)):
         return type(tree)(_example(x) for x in tree)
     if isinstance(tree, TensorSpec):
+        if tree.mesh is not None:
+            from torch.distributed.tensor import zeros
+            return zeros(tree.shape, dtype=tree.dtype, device_mesh=tree.mesh,
+                         placements=tree.placements)
         return torch.zeros(tree.shape, dtype=tree.dtype, device=tree.device)
     if isinstance(tree, torch.Tensor):
         return torch.zeros_like(tree)

@@ -230,8 +230,13 @@ class DagDeployment:
         for pname in platforms:
             plat = self.registry.get(pname)
             wrapper = PlatformWrapper(plat, handler, name)
+            warm_fn = compile_fn
+            if compile_fn is not None and plat.mesh is not None:
+                # pre-warm the program the step runs: under the platform's
+                # mesh and rules (the cache's pool threads have none bound)
+                warm_fn = PlatformWrapper(plat, compile_fn, name)
             self._functions[(name, pname)] = DeployedFn(
-                name, plat, wrapper, handler, abstract_args, compile_fn
+                name, plat, wrapper, handler, abstract_args, warm_fn
             )
         return self
 

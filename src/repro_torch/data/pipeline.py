@@ -12,7 +12,8 @@ side CUDA stream, and the consumer's current stream waits on the copy's
 event before it reads the tensor. ``make_train_iterator`` wraps this in the
 GeoFF ``DoubleBuffer``, so batch k+1's generation and host->device copy
 overlap step k's compute; the copy is issued on the buffer's thread and
-joined on the thread that takes the batch.
+joined on the thread that takes the batch. With a mesh each batch becomes
+DTensors laid out by the rules' "batch" axis (``shard_batch``).
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ import numpy as np
 
 from repro_torch.core.prefetch import (DoubleBuffer, _join_on_current_stream,
                                        _to_device)
+from repro_torch.dist import sharding as shd
 from repro_torch.models.params import check_device
 
 
@@ -69,13 +71,6 @@ class ShardedLoader:
         return b
 
 
-def _no_mesh(mesh, rules):
-    if mesh is not None or rules is not None:
-        raise NotImplementedError(
-            "sharded batches wait for the distribution item of the port "
-            "(ROADMAP queue 1); pass mesh=None, rules=None")
-
-
 def stage_batch(batch, device, side_streams: dict, lock):
     """Start the copy of a numpy batch onto ``device``: ({key: tensor},
     {key: CUDA event or None}). The tensors may not be read before
@@ -93,25 +88,47 @@ def join_batch(staged):
     return {k: _join_on_current_stream(v, events[k]) for k, v in out.items()}
 
 
+def place_batch(batch, mesh, rules):
+    """A batch of tensors on the mesh's device as DTensors: the leading dim
+    by the rules' "batch" axis, the rest replicated (each rank keeps its
+    rows of the whole batch it was given; no collective)."""
+    from torch.distributed.tensor import distribute_tensor
+    out = {}
+    for k, v in batch.items():
+        spec = shd.pspec_for(v.shape, ("batch",) + (None,) * (v.ndim - 1),
+                             rules, mesh)
+        out[k] = distribute_tensor(v, mesh, shd.placements_for(spec, mesh),
+                                   src_data_rank=None)
+    return out
+
+
 def shard_batch(batch, mesh=None, rules=None, device="cuda"):
     """numpy batch -> tensors on ``device``, readable on the caller's
-    current stream. ``mesh``/``rules`` raise (no distribution yet)."""
-    _no_mesh(mesh, rules)
+    current stream; with a mesh, DTensors on the mesh's device laid out by
+    the rules (``place_batch``)."""
+    if mesh is not None:
+        device = mesh.device_type
     dev = check_device(device)
-    return join_batch(stage_batch(batch, dev, {}, threading.Lock()))
+    out = join_batch(stage_batch(batch, dev, {}, threading.Lock()))
+    return out if mesh is None else place_batch(out, mesh, rules)
 
 
 def make_train_iterator(cfg, seq_len: int, batch_size: int, mesh=None,
                         rules=None, start_step: int = 0, seed: int = 0,
                         prefetch_depth: int = 2, device="cuda"):
-    """The corpus' batches from ``start_step`` on ``device``,
-    ``prefetch_depth`` in flight: staged on the DoubleBuffer's thread,
-    joined on the stream of the thread that takes them."""
-    _no_mesh(mesh, rules)
+    """The corpus' batches from ``start_step`` on ``device`` (the mesh's
+    device type where a mesh is given), ``prefetch_depth`` in flight: staged
+    on the DoubleBuffer's thread, joined on the stream of the thread that
+    takes them; with a mesh, then laid out by the rules (``place_batch``)."""
+    if mesh is not None:
+        device = mesh.device_type
     dev = check_device(device)
     corpus = SyntheticCorpus(cfg.vocab_size, seq_len, seed)
     loader = ShardedLoader(corpus, batch_size, start_step)
     side_streams, lock = {}, threading.Lock()
-    return map(join_batch, DoubleBuffer(
+    batches = map(join_batch, DoubleBuffer(
         loader, depth=prefetch_depth,
         transform=lambda b: stage_batch(b, dev, side_streams, lock)))
+    if mesh is None:
+        return batches
+    return (place_batch(b, mesh, rules) for b in batches)

@@ -32,7 +32,7 @@ import threading
 
 import torch
 
-from repro_torch.kernels import build, refuse_grad
+from repro_torch.kernels import shard_dim, along, build, on_local_shards, refuse_grad
 
 NEG_INF = -1e30
 HEAD_DIMS = tuple(range(16, 257, 16))  # every d the kernels take
@@ -187,10 +187,29 @@ def _check(q, k, v, window):
                          f"B={B}, T={T}")
 
 
+def local_rule(ps):
+    """Batch shards of q, k, v; or head shards, where q and k/v split their
+    heads over the same mesh dim (q head h reads kv head h // (H/K), so the
+    local groups line up). A q sharded by heads beside replicated kv heads
+    (MQA, or K not divisible) is replicated first."""
+    d = shard_dim(ps[0])
+    if d == 0:
+        return along(ps, (0, 0, 0), (0,))
+    if d == 2 and shard_dim(ps[1]) == 2 and shard_dim(ps[2]) == 2:
+        return along(ps, (2, 2, 2), (2,))
+    return None
+
+
 def flash_attention(q, k, v, *, causal=True, window=None, scale=None):
     """q: (B,T,H,d); k/v: (B,S,K,d), H % K == 0. Returns (B,T,H,d).
-    Raises where an input requires grad (``refuse_grad``)."""
+    Raises where an input requires grad (``refuse_grad``). DTensor inputs
+    run on their local shards (``on_local_shards``)."""
     refuse_grad("flash_attention", q, k, v)
+    out = on_local_shards(
+        lambda *t: flash_attention(*t, causal=causal, window=window, scale=scale),
+        (q, k, v), local_rule, 1)
+    if out is not None:
+        return out
     if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      scale=scale)

@@ -28,7 +28,7 @@ import threading
 
 import torch
 
-from repro_torch.kernels import build, refuse_grad
+from repro_torch.kernels import shard_dim, along, build, on_local_shards, refuse_grad
 
 _lib_lock = threading.Lock()
 _count_lock = threading.Lock()
@@ -78,10 +78,25 @@ def _check(log_a, b):
         raise ValueError("rglru_scan takes fewer than 2**31 elements")
 
 
+def _local_rule(ps):
+    """Batch or channel shards: the recurrence is independent along both."""
+    d = shard_dim(ps[0])
+    if d == 0:
+        return along(ps, (0, 0), (0, 0))
+    if d == 2:
+        return along(ps, (2, 2), (2, 1))
+    return None
+
+
 def rglru_scan(log_a, b, *, chunk=256, block_w=None):
     """log_a, b: (B,T,W) float32. Returns (y (B,T,W), h_last (B,W)).
-    Raises where an input requires grad (``refuse_grad``)."""
+    Raises where an input requires grad (``refuse_grad``). DTensor inputs
+    run on their local shards (``on_local_shards``)."""
     refuse_grad("rglru_scan", log_a, b)
+    out = on_local_shards(lambda *t: rglru_scan(*t, chunk=chunk, block_w=block_w),
+                          (log_a, b), _local_rule, 2)
+    if out is not None:
+        return out
     if log_a.device.type == "cpu" and b.device.type == "cpu":
         return rglru_scan_plain(log_a, b)
     if log_a.device.type != "cuda":

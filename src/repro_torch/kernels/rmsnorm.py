@@ -35,7 +35,7 @@ import threading
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import build, refuse_grad
+from repro_torch.kernels import shard_dim, along, build, on_local_shards, refuse_grad
 
 MAX_D = 16384  # 512 threads a row, 32 elements a thread in registers
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -112,10 +112,29 @@ def _rows(t):
     return t.contiguous(), D
 
 
+def _local(fn, tensors, n_out):
+    """``fn`` on local row shards where x is a DTensor (``on_local_shards``):
+    a shard of the last dim, whose statistics span every rank, is
+    replicated first."""
+    x = tensors[0]
+    last = x.ndim - 1
+
+    def rule(ps):
+        d = shard_dim(ps[0])
+        if d is None or d == last:
+            return None
+        return along(ps, (d,) * (len(ps) - 1) + (None,), (d,) * n_out)
+    return on_local_shards(fn, tensors, rule, n_out)
+
+
 def rmsnorm(x, w, eps=1e-6):
     """x: (..., D); w: (D,). Returns x's shape and dtype. Raises where an
-    input requires grad (``refuse_grad``), as do the two below."""
+    input requires grad (``refuse_grad``), as do the two below. DTensor
+    inputs run on their local row shards (``_local``), in all three."""
     refuse_grad("rmsnorm", x, w)
+    out = _local(lambda *t: rmsnorm(*t, eps), (x, w), 1)
+    if out is not None:
+        return out
     if x.is_cuda:
         return _launch(x, w, eps)
     if x.device.type == "cpu" and w.device.type == "cpu":
@@ -127,6 +146,9 @@ def add_rmsnorm(x, h, w, eps=1e-6):
     """x, h: (..., D); w: (D,). Returns ``(x + h, rmsnorm(x + h, w))``, both
     in the dtype of ``x + h``, from one launch on CUDA tensors."""
     refuse_grad("add_rmsnorm", x, h, w)
+    out = _local(lambda *t: add_rmsnorm(*t, eps), (x, h, w), 2)
+    if out is not None:
+        return out
     if x.is_cuda:
         return _launch(x, w, eps, h, _ADD)
     if x.device.type == "cpu" and h.device.type == "cpu" and w.device.type == "cpu":
@@ -138,6 +160,9 @@ def gated_rmsnorm(y, z, w, eps=1e-6):
     """y, z: (..., D); w: (D,). Returns ``rmsnorm(y * silu(z), w)`` in the
     dtype of ``y * silu(z)``, from one launch on CUDA tensors."""
     refuse_grad("gated_rmsnorm", y, z, w)
+    out = _local(lambda *t: gated_rmsnorm(*t, eps), (y, z, w), 1)
+    if out is not None:
+        return out
     if y.is_cuda:
         return _launch(y, w, eps, z, _GATE)
     if y.device.type == "cpu" and z.device.type == "cpu" and w.device.type == "cpu":

@@ -39,7 +39,7 @@ import threading
 
 import torch
 
-from repro_torch.kernels import build, refuse_grad
+from repro_torch.kernels import shard_dim, along, build, on_local_shards, refuse_grad
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 TILE = 64  # rows t and columns s of a C·Bᵀ tile
@@ -207,12 +207,29 @@ def _check(x, dt, A_log, B_mat, C_mat, Q):
         raise ValueError("ssd_scan takes fewer than 2**31 elements per tensor")
 
 
+def local_rule(ps):
+    """Batch shards (A_log replicated), or head shards of x with dt and
+    A_log split alike (B and C replicated): the scan is independent along
+    both."""
+    d = shard_dim(ps[0])
+    if d == 0:
+        return along(ps, (0, 0, None, 0, 0), (0, 0))
+    if d == 2:
+        return along(ps, (2, 2, 0, None, None), (2, 1))
+    return None
+
+
 def ssd_scan(x, dt, A_log, B_mat, C_mat, chunk, *, block_h=None):
     """x (B,L,H,P), dt (B,L,H), A_log (H,), B/C (B,L,N). Returns (y (B,L,H,P)
     in x's dtype, final_state (B,H,P,N) float32). Raises where an input
-    requires grad (``refuse_grad``)."""
+    requires grad (``refuse_grad``). DTensor inputs run on their local
+    shards (``on_local_shards``)."""
     tensors = (x, dt, A_log, B_mat, C_mat)
     refuse_grad("ssd_scan", *tensors)
+    out = on_local_shards(lambda *t: ssd_scan(*t, chunk, block_h=block_h),
+                          tensors, local_rule, 2)
+    if out is not None:
+        return out
     if all(t.device.type == "cpu" for t in tensors):
         return ssd_scan_plain(x, dt, A_log, B_mat, C_mat, chunk)
     if x.device.type != "cuda":

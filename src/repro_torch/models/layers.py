@@ -27,8 +27,10 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.dist.sharding import current_sharding, shard
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.dist.sharding import (current_sharding, mesh_shape, rows_fit,
+                                       shard, shard_in_place, write_)
+from repro_torch.kernels import along, local_call, shard_dim
+from repro_torch.kernels.flash_attention import flash_attention, local_rule
 from repro_torch.kernels.rmsnorm import add_rmsnorm as add_rmsnorm_kernel
 from repro_torch.kernels.rmsnorm import gated_rmsnorm as gated_rmsnorm_kernel
 from repro_torch.kernels.rmsnorm import rmsnorm as rmsnorm_kernel
@@ -230,12 +232,18 @@ def attention(cfg, bc: BlockCfg, p, x, positions, mode, cache=None,
         if cfg.use_pallas:
             out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                   causal=causal, window=bc.window)
-        elif cfg.attn_chunk_q and T > cfg.attn_chunk_q:
-            out = _sdpa_chunked(cfg, q, k, v, pos, pos, bc.window, causal,
-                                cfg.attn_chunk_q)
         else:
-            mask = _attn_mask(pos, pos, bc.window, causal)
-            out = _sdpa(cfg, q, k, v, mask)
+            def plain(q, k, v):
+                if cfg.attn_chunk_q and T > cfg.attn_chunk_q:
+                    return _sdpa_chunked(cfg, q, k, v, pos, pos, bc.window, causal,
+                                         cfg.attn_chunk_q)
+                return _sdpa(cfg, q, k, v, _attn_mask(pos, pos, bc.window, causal))
+            # DTensors: on the local shards, as the kernel's wrapper runs
+            # (batch, or heads where q and kv split alike); DTensor's own
+            # einsum would flatten a batch split two ways beside split heads
+            # into one strided dim, whose redistribution plan it searches
+            # for minutes on a 3-D mesh
+            out = local_call(plain, (q, k, v), local_rule)
         new_cache = None
         if mode == "prefill":
             if bc.window is not None and T > bc.window:
@@ -243,13 +251,17 @@ def attention(cfg, bc: BlockCfg, p, x, positions, mode, cache=None,
                 W = bc.window
                 start = T - W
                 kr, vr = k[:, start:], v[:, start:]
-                # roll so that slot i = position p with p % W == i
+                # roll so that slot i = position p with p % W == i (two
+                # slices: DTensor has no rule for roll in some versions)
                 shift = start % W
-                kr = torch.roll(kr, shift, dims=1)
-                vr = torch.roll(vr, shift, dims=1)
+                kr, vr = (torch.cat([c[:, W - shift:], c[:, :W - shift]], dim=1)
+                          for c in (kr, vr))
                 new_cache = (kr, vr)
             else:
                 new_cache = (k, v)
+            # the decode step's layout, which it writes in place
+            new_cache = tuple(shard(c, "batch", "cache_seq", "act_kv", None)
+                              for c in new_cache)
     else:  # decode
         ck, cv = cache
         S = ck.shape[1]
@@ -258,10 +270,12 @@ def attention(cfg, bc: BlockCfg, p, x, positions, mode, cache=None,
         slot = cur % S if ring else cur
         # the JAX package's dynamic_update_slice clamps the start index
         slot = min(max(slot, 0), S - 1)
-        ck[:, slot:slot + 1] = k
-        cv[:, slot:slot + 1] = v
-        ck = shard(ck, "batch", "cache_seq", "act_kv", None)
-        cv = shard(cv, "batch", "cache_seq", "act_kv", None)
+        # the cache stays where it is (a seq dim sharded over "model" is
+        # written by the rank that holds the slot, into its own shard)
+        ck = shard_in_place(ck, "batch", "cache_seq", "act_kv", None)
+        cv = shard_in_place(cv, "batch", "cache_seq", "act_kv", None)
+        write_(ck, 1, slot, k)
+        write_(cv, 1, slot, v)
         idx = torch.arange(S, device=x.device)
         if ring:
             # slot i holds absolute position cur - ((cur - i) mod S)
@@ -274,6 +288,10 @@ def attention(cfg, bc: BlockCfg, p, x, positions, mode, cache=None,
         m = valid & (dq >= 0)
         if bc.window is not None:
             m &= dq < bc.window
+        # the one query row whole across heads: the cache splits its seq
+        # over "model", so the scores split along S (a head split beside it
+        # would make DTensor interleave both in one batch dim of the bmm)
+        q = shard(q, "batch", "attn_seq", None, None)
         out = _sdpa(cfg, q, ck, cv, m[None, None, :].expand(B, 1, S))
         new_cache = (ck, cv)
 
@@ -308,10 +326,11 @@ def mlp(cfg, p, x):
 
 
 # ---------------------------------------------------------------------------
-# MoE: top-k token-choice routing, capacity-limited dispatch to stacked
-# experts, gate-weighted combine. The JAX package groups tokens by the mesh's
-# batch shards (G groups, each with its own capacity); outside a mesh G = 1,
-# and the port runs no mesh.
+# MoE: top-k token-choice routing with BATCH-GROUP-LOCAL dispatch, capacity-
+# limited, to stacked experts, gate-weighted combine. Tokens are regrouped
+# (N, D) -> (G, N/G, D) with G = the mesh's batch-shard count; slots and the
+# capacity are per group, so the (G, E, C, D) dispatch buffer shards over
+# the batch axes with no collective. Outside a mesh G = 1.
 # ---------------------------------------------------------------------------
 def moe_defs(cfg) -> dict:
     D, F_, E = cfg.d_model, cfg.d_ff, cfg.num_experts
@@ -325,13 +344,19 @@ def moe_defs(cfg) -> dict:
 
 
 def _batch_groups(n_tokens: int) -> int:
-    """Routing groups: 1 outside a mesh; a mesh raises, as ``shard`` does."""
+    """Batch-shard count of the ambient mesh (1 outside a mesh context, or
+    where it does not divide the tokens)."""
     mesh, rules = current_sharding()
     if mesh is None or rules is None:
         return 1
-    raise NotImplementedError(
-        "MoE under a device mesh: distribution is not ported yet; run "
-        "single-card platforms (Platform.mesh=None)")
+    spec = rules.lookup("batch")
+    if spec is None:
+        return 1
+    shape = mesh_shape(mesh)
+    g = 1
+    for a in ((spec,) if isinstance(spec, str) else tuple(spec)):
+        g *= shape.get(a, 1)
+    return g if n_tokens % g == 0 else 1
 
 
 def moe_route(cfg, p, xg):
@@ -365,6 +390,65 @@ def moe_slots(gate_i, E):
     return pos.reshape(G, K, n).transpose(1, 2)                  # (G, n, K)
 
 
+def _by_groups(ps):
+    """Every input and the output split alike along the routing groups
+    (dim 0); any other split is replicated first."""
+    return along(ps, (0,) * len(ps), (0,)) if shard_dim(ps[0]) == 0 else None
+
+
+def _dispatch(E, C):
+    """(xg, keep, gate_i, slot) -> the (G, E, C, D) buffer: each kept choice
+    of each token added into its expert's slot (a dropped choice adds
+    zeros at slot C-1)."""
+    def dispatch(xg, keep, gate_i, slot):
+        G, n, D = xg.shape
+        K = gate_i.shape[-1]
+        g_idx = torch.arange(G, device=xg.device)[:, None, None].expand(G, n, K)
+        upd = xg[:, :, None, :] * keep.to(xg.dtype)[..., None]    # (G, n, K, D)
+        buf = xg.new_zeros((G, E, C, D))
+        buf.index_put_((g_idx.reshape(-1), gate_i.reshape(-1), slot.reshape(-1)),
+                       upd.reshape(-1, D), accumulate=True)
+        return buf
+    return dispatch
+
+
+def _combine(dtype):
+    """(out_buf, gate_w, keep, gate_i, slot) -> (G, n, D): the gate, rounded
+    to out_buf's dtype, times the slot's output, each token's choices added
+    in increasing expert order, in ``dtype``."""
+    def combine(out_buf, gate_w, keep, gate_i, slot):
+        G, n, K = gate_i.shape
+        g_idx = torch.arange(G, device=out_buf.device)[:, None, None].expand(G, n, K)
+        gate = (gate_w * keep).to(out_buf.dtype)                 # (G, n, K)
+        order = torch.argsort(gate_i, dim=-1)
+        ex, sl, gate = (torch.gather(t, 2, order) for t in (gate_i, slot, gate))
+        contrib = (out_buf[g_idx, ex, sl] * gate[..., None]).to(dtype)  # (G,n,K,D)
+        out = torch.zeros((G, n, out_buf.shape[-1]), dtype=dtype, device=out_buf.device)
+        for j in range(K):
+            out = out + contrib[:, :, j]
+        return out
+    return combine
+
+
+def _experts(buf, w_gate, w_up, w_down):
+    """The gated FFN of each expert e on its slots buf[:, e]."""
+    g_ = torch.einsum("gecd,edf->gecf", *promote(buf, w_gate))
+    u = torch.einsum("gecd,edf->gecf", *promote(buf, w_up))
+    return torch.einsum("gecf,efd->gecd", *promote(F.silu(g_) * u, w_down))
+
+
+def _experts_rule(ps):
+    """Independent along the groups (buf's dim 0) and along the experts
+    (buf's dim 1 with the weights' dim 0); a split of the ff width, whose
+    down projection sums over it, is replicated first."""
+    d = shard_dim(ps[0])
+    if d == 0:
+        return along(ps, (0, None, None, None), (0,))
+    if d == 1 or all(shard_dim(q) == 0 for q in ps[1:]):
+        return along(ps, (1, 0, 0, 0), (1,))
+    return None
+
+
 def moe(cfg, p, x):
     """x: (B,T,D) -> ((B,T,D), aux load-balance loss).
 
@@ -381,34 +465,19 @@ def moe(cfg, p, x):
     N = B * T
     G = _batch_groups(N)
     n = N // G
-    xg = x.reshape(G, n, D)
+    xg = shard(x.reshape(G, n, D), "batch", None, None)
     probs, gate_w, gate_i, pos, C = moe_route(cfg, p, xg)
     keep = pos < C
     slot = pos.clamp(max=C - 1)  # a dropped choice points at slot C-1
 
-    # dispatch into (G, E, C, D)
-    g_idx = torch.arange(G, device=x.device)[:, None, None].expand(G, n, K)
-    upd = xg[:, :, None, :] * keep.to(x.dtype)[..., None]        # (G, n, K, D)
-    buf = x.new_zeros((G, E, C, D))
-    buf.index_put_((g_idx.reshape(-1), gate_i.reshape(-1), slot.reshape(-1)),
-                   upd.reshape(-1, D), accumulate=True)
-
-    # expert FFN on the stacked weights
-    g_ = torch.einsum("gecd,edf->gecf", *promote(buf, p["w_gate"]))
-    u = torch.einsum("gecd,edf->gecf", *promote(buf, p["w_up"]))
-    h = F.silu(g_) * u
-    out_buf = torch.einsum("gecf,efd->gecd", *promote(h, p["w_down"]))
-
-    # combine: the gate, rounded to out_buf's dtype, times the slot's
-    # output, each token's choices taken in increasing expert order
-    gate = (gate_w * keep).to(out_buf.dtype)                     # (G, n, K)
-    order = torch.argsort(gate_i, dim=-1)
-    ex, sl, gate = (torch.gather(t, 2, order) for t in (gate_i, slot, gate))
-    contrib = (out_buf[g_idx, ex, sl] * gate[..., None]).to(x.dtype)  # (G,n,K,D)
-    out = torch.zeros((G, n, D), dtype=x.dtype, device=x.device)
-    for j in range(K):
-        out = out + contrib[:, :, j]
-    out = out.reshape(B, T, D)
+    # dispatch, the experts and the combine, each on the local groups (and
+    # experts) of DTensors: groups route independently (``_by_groups``)
+    buf = local_call(_dispatch(E, C), (xg, keep, gate_i, slot), _by_groups)
+    w = (p["w_gate"], p["w_up"], p["w_down"])
+    out_buf = local_call(_experts, (buf,) + w, _experts_rule)
+    out = local_call(_combine(x.dtype), (out_buf, gate_w, keep, gate_i, slot),
+                     _by_groups)
+    out = rows_fit(out, B).reshape(B, T, D)
 
     # switch-style load-balance aux loss
     me = torch.mean(probs, dim=(0, 1))                           # (E,)

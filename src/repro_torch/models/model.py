@@ -7,21 +7,27 @@
   prefill / decode_step           serving
   batch_defs / input_specs        TensorSpec stand-ins for a cell's inputs
   spec_zeros                      zero caches from SpecDefs
+  distribute_params               params (or caches) onto a mesh
 
 Training runs the JAX package's plain numerics: that package trains on its
 jnp path, since ``jax.grad`` cannot go through its Pallas kernels, and the
 port's kernel wrappers raise under grad in the same way
 (``repro_torch.kernels.refuse_grad``). Gradients reach the float32 master
-params through ``cast_params``. Sharding arguments (``rules``, ``mesh``)
-raise: distribution is not ported.
+params through ``cast_params``. Under a ``DeviceMesh`` the params, caches
+and batches are DTensors laid out by the sharding rules
+(``distribute_params``);
+the model code is the same, run under ``dist.sharding.use_sharding``.
 ``init_params``, ``init_serving_params``, ``spec_zeros`` and ``input_specs``
-put their tensors on the card unless the caller passes ``device="cpu"``.
+put their tensors on the card unless the caller passes ``device="cpu"``
+(with a mesh: on the mesh's device type).
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.prewarm import TensorSpec
+from repro_torch.dist import sharding as shd
 from repro_torch.models import params as prm
 from repro_torch.models import transformer as tfm
 from repro_torch.models.transformer import SpecDef, _is_spec, cache_defs
@@ -60,11 +66,17 @@ def _ce_terms(cfg, params, x, labels):
     """Cross-entropy pieces for hidden states x vs labels: (nll_sum, n_tok),
     float32."""
     logits = tfm.unembed(cfg, params, x)
-    lp = torch.log_softmax(logits.float(), dim=-1)
+    # whole rows before the softmax, gathered where the backward pass sees
+    # it: its grad goes back to the vocab shards (an implicit gather inside
+    # log_softmax would hand the unembed's backward whole-vocab grads)
+    lp = torch.log_softmax(shd.shard(logits.float(), "batch", "seq", None), dim=-1)
     mask = (labels >= 0).float()
     labels_safe = labels.clamp(min=0).long()
-    ll = torch.gather(lp, -1, labels_safe[..., None])[..., 0]
-    return -torch.sum(ll * mask), torch.sum(mask)
+    # -lp[label] per position: the gather of the JAX package's
+    # take_along_axis, as nll_loss (DTensor lays its backward out by the
+    # batch; a gather's backward builds the global-shape zeros on every rank)
+    nll = F.nll_loss(lp.flatten(0, -2), labels_safe.flatten(), reduction="none")
+    return torch.sum(nll.view(labels.shape) * mask), torch.sum(mask)
 
 
 def forward_train(cfg, params, batch):
@@ -228,30 +240,71 @@ def grad_acc_defs(pdefs):
 
 
 # ---------------------------------------------------------------------------
-# spec helpers (SpecDef -> TensorSpec)
+# spec helpers (SpecDef / ParamDef -> TensorSpec / PartitionSpec / DTensor)
 # ---------------------------------------------------------------------------
-def _no_sharding(rules, mesh):
-    if rules is not None or mesh is not None:
-        raise NotImplementedError(
-            "sharding rules and meshes wait for the distribution item of the "
-            "port (ROADMAP queue 1); pass rules=None, mesh=None")
+def _is_def(x):
+    return isinstance(x, (SpecDef, prm.ParamDef))
+
+
+def _mesh_device(mesh, device):
+    """The mesh's device type where there is a mesh, else ``device``."""
+    return str(prm.check_device(mesh.device_type if mesh is not None else device))
 
 
 def spec_structs(defs, rules=None, mesh=None, device="cuda"):
     """``TensorSpec`` stand-ins of ``defs`` on ``device`` (the JAX
-    package's ``ShapeDtypeStruct``s)."""
-    _no_sharding(rules, mesh)
-    dev = str(prm.check_device(device))
-    return tree_map(
-        lambda d: TensorSpec(tuple(d.shape), getattr(torch, d.dtype), dev),
-        defs, is_leaf=_is_spec)
+    package's ``ShapeDtypeStruct``s); with rules and a mesh each carries
+    the mesh and its placements (the JAX package's ``NamedSharding``)."""
+    dev = _mesh_device(mesh, device)
+
+    def mk(d: SpecDef):
+        if rules is None or mesh is None:
+            return TensorSpec(tuple(d.shape), getattr(torch, d.dtype), dev)
+        spec = shd.pspec_for(d.shape, d.axes, rules, mesh)
+        return TensorSpec(tuple(d.shape), getattr(torch, d.dtype), dev, mesh,
+                          shd.placements_for(spec, mesh))
+    return tree_map(mk, defs, is_leaf=_is_spec)
 
 
-def spec_zeros(defs, device="cuda"):
+def spec_pspecs(defs, rules, mesh):
+    return tree_map(lambda d: shd.pspec_for(d.shape, d.axes, rules, mesh), defs,
+                    is_leaf=_is_def)
+
+
+def spec_zeros(defs, device="cuda", rules=None, mesh=None):
+    """Zero tensors of ``defs``; with rules and a mesh, DTensors in their
+    placements (a decode cache's layout: the step writes it in place)."""
+    if rules is not None and mesh is not None:
+        from torch.distributed.tensor import zeros
+        prm.check_device(mesh.device_type)
+        return tree_map(
+            lambda d: zeros(d.shape, dtype=getattr(torch, d.dtype), device_mesh=mesh,
+                            placements=shd.placements_for(
+                                shd.pspec_for(d.shape, d.axes, rules, mesh), mesh)),
+            defs, is_leaf=_is_spec)
     dev = prm.check_device(device)
     return tree_map(
         lambda d: torch.zeros(d.shape, dtype=getattr(torch, d.dtype), device=dev),
         defs, is_leaf=_is_spec)
+
+
+def distribute_params(tree, defs, rules, mesh):
+    """``tree`` (params, or caches or a batch: tensors matching ``defs``, a
+    tree of ParamDefs or SpecDefs) as DTensors on ``mesh`` in the
+    placements the rules give each leaf. Every rank must hold the same
+    values: each keeps its own chunk (no collective). A DTensor leaf is
+    gathered first, so this also moves a tree from one mesh to another
+    (``Trainer.remesh``)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    def put(d, t):
+        if shd.is_dtensor(t):
+            t = t.full_tensor()
+        t = t.to(mesh.device_type)
+        spec = shd.pspec_for(d.shape, d.axes, rules, mesh)
+        return distribute_tensor(t, mesh, shd.placements_for(spec, mesh),
+                                 src_data_rank=None)
+    return tree_map(put, defs, tree, is_leaf=_is_def)
 
 
 # ---------------------------------------------------------------------------

@@ -124,6 +124,29 @@ def init_params(defs, generator: torch.Generator, dtype=torch.float32,
     return tree_map_with_path(leaf, defs, is_leaf=_is_def)
 
 
+def abstract_params(defs, dtype=torch.float32, rules=None, mesh=None):
+    """Stand-ins without storage (the dry-run's inputs) for a tree of
+    ParamDefs, or of the model's SpecDefs (``dtype`` None: each SpecDef's
+    own): meta tensors of each leaf's shape; with rules and a mesh, meta
+    DTensors in the rules' placements, whose local tensors are this rank's
+    shard shapes."""
+    from repro_torch.dist import sharding as shd
+
+    def mk(d):
+        dt = dtype if dtype is not None else getattr(torch, d.dtype)
+        if rules is None or mesh is None:
+            return torch.empty(d.shape, dtype=dt, device="meta")
+        return shd.meta_dtensor(d.shape, dt, shd.pspec_for(
+            d.shape, d.axes, rules, mesh), mesh)
+    return tree_map(mk, defs, is_leaf=lambda x: hasattr(x, "axes"))
+
+
+def param_pspecs(defs, rules, mesh):
+    from repro_torch.dist.sharding import pspec_for
+    return tree_map(lambda d: pspec_for(d.shape, d.axes, rules, mesh), defs,
+                    is_leaf=_is_def)
+
+
 def param_count(defs) -> int:
     return sum(math.prod(d.shape) for d in tree_leaves(defs, is_leaf=_is_def))
 

@@ -20,8 +20,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.dist.sharding import shard
+from repro_torch.kernels import along, local_call, shard_dim
 # ssd_chunked(x, dt, A_log, B, C, chunk) -> (y, state): the
 # chunked SSD oracle is the kernel's plain version
+from repro_torch.kernels.ssd_scan import local_rule as ssd_local_rule
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.kernels.ssd_scan import ssd_scan_plain as ssd_chunked
 from repro_torch.models.layers import gated_rmsnorm, promote, rmsnorm
@@ -48,8 +50,24 @@ def ssd_defs(cfg) -> dict:
     }
 
 
+def _conv_rule(ps):
+    """The depthwise conv is independent along the batch and the channels
+    (x's dims 0 and 2; w's dim 1, b's dim 0 alike), not along time."""
+    d = shard_dim(ps[0])
+    if d == 0:
+        return along(ps, (0, None, None), (0,))
+    if d == 2:
+        return along(ps, (2, 1, 0), (2,))
+    return None
+
+
 def causal_conv(x, w, b):
-    """Depthwise causal conv. x: (B,L,C), w: (cw,C). Returns (B,L,C)."""
+    """Depthwise causal conv. x: (B,L,C), w: (cw,C). Returns (B,L,C).
+    DTensors run on their local shards (``_conv_rule``)."""
+    return local_call(_causal_conv, (x, w, b), _conv_rule)
+
+
+def _causal_conv(x, w, b):
     cw = w.shape[0]
     pad = F.pad(x, (0, 0, cw - 1, 0))
     out = torch.zeros_like(x)
@@ -119,8 +137,10 @@ def ssd_block(cfg, p, x, mode, cache=None, use_pallas=False, u=None):
             xs_p, dt_p, Bm_p, Cm_p = xs, dt, Bm, Cm
         if use_pallas:
             y, state = ssd_scan(xs_p, dt_p, p["A_log"], Bm_p, Cm_p, Q)
-        else:
-            y, state = ssd_chunked(xs_p, dt_p, p["A_log"], Bm_p, Cm_p, Q)
+        else:  # DTensors: on the local shards, as the kernel's wrapper runs
+            y, state = local_call(lambda *t: ssd_chunked(*t, Q),
+                                  (xs_p, dt_p, p["A_log"], Bm_p, Cm_p),
+                                  ssd_local_rule, 2)
         if pad:
             y = y[:, :T]
         y = y + xs * p["D"][None, None, :, None]

@@ -18,7 +18,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                      create_selective_checkpoint_contexts)
 
-from repro_torch.dist.sharding import shard
+from repro_torch.dist.sharding import fsdp_gather, shard, vocab_rows
 from repro_torch.models.griffin import rglru_block, rglru_cache_specs, rglru_defs
 from repro_torch.models.layers import (add_rmsnorm, attention, attn_cache_shape,
                                        attn_defs, block_cfg_for, ffn, ffn_defs,
@@ -80,6 +80,7 @@ def transformer_defs(cfg) -> dict:
 # ---------------------------------------------------------------------------
 def add_norm(cfg, x, h, w):
     """``(x + h, rmsnorm(x + h, w))``; ``h`` None: nothing to add."""
+    w = fsdp_gather(w)
     if h is None:
         return x, rmsnorm(x, w, use_kernel=cfg.use_pallas)
     return add_rmsnorm(x, h, w, use_kernel=cfg.use_pallas)
@@ -173,6 +174,8 @@ def run_blocks(cfg, params, x, positions, mode, caches=None, cur_index=None):
         per_layer = []
 
         def body(x, delta, p_i, c_i):
+            # gathered inside the (checkpointed) body: recomputed, not saved
+            p_i = tree_map(fsdp_gather, p_i)
             new_c, aux_c = {}, 0.0
             for j, kind in enumerate(pattern):
                 cj = None if c_i is None else c_i[f"p{j}"]
@@ -206,9 +209,9 @@ def run_blocks(cfg, params, x, positions, mode, caches=None, cur_index=None):
     rem_kinds = cfg.layer_kinds()[n_cyc * len(pattern):]
     for i, kind in enumerate(rem_kinds):
         ci = None if caches is None else caches.get(f"rem{i}")
-        x, delta, c_new, aux = block_deferred(cfg, kind, blocks_p[f"rem{i}"], x,
-                                              positions, mode, ci, cur_index,
-                                              delta)
+        x, delta, c_new, aux = block_deferred(
+            cfg, kind, tree_map(fsdp_gather, blocks_p[f"rem{i}"]), x, positions,
+            mode, ci, cur_index, delta)
         if mode != "train":
             new_caches[f"rem{i}"] = c_new
         aux_total = aux_total + aux
@@ -225,13 +228,13 @@ def embed_inputs(cfg, params, batch):
     embeddings."""
     cdt = getattr(torch, cfg.compute_dtype)
     if cfg.input_kind == "frames":
-        x = torch.einsum("btd,de->bte",
-                         *promote(batch["frames"].to(cdt), params["in_proj"]))
+        x = torch.einsum("btd,de->bte", *promote(batch["frames"].to(cdt),
+                                                 fsdp_gather(params["in_proj"])))
     elif cfg.input_kind in ("tokens", "tokens+patches"):
-        x = params["embed"][batch["tokens"].long()]
+        x = vocab_rows(fsdp_gather(params["embed"]), batch["tokens"].long())
         if cfg.input_kind == "tokens+patches" and "patches" in batch:
-            pat = torch.einsum("bpd,de->bpe", *promote(batch["patches"].to(cdt),
-                                                       params["patch_proj"]))
+            pat = torch.einsum("bpd,de->bpe", *promote(
+                batch["patches"].to(cdt), fsdp_gather(params["patch_proj"])))
             x = torch.cat(promote(pat, x), dim=1)
     else:
         raise NotImplementedError(f"input_kind {cfg.input_kind!r} is not ported")
@@ -241,11 +244,11 @@ def embed_inputs(cfg, params, batch):
 def unembed(cfg, params, x):
     """x: (B,T,D) -> logits (B,T,V) in compute dtype (+softcap)."""
     if "head" in params:
-        logits = torch.einsum("btd,dv->btv", *promote(x, params["head"]))
+        logits = torch.einsum("btd,dv->btv", *promote(x, fsdp_gather(params["head"])))
     else:
         # a matmul against the transposed view: einsum would first copy the
         # whole (V, D) embedding into a contiguous (D, V) operand, per call
-        logits = torch.matmul(*promote(x, params["embed"].t()))
+        logits = torch.matmul(*promote(x, fsdp_gather(params["embed"]).t()))
     if cfg.logits_softcap:
         c = cfg.logits_softcap
         logits = c * torch.tanh(logits.float() / c)

@@ -56,8 +56,8 @@ class AdamW:
         leaves = tree_leaves(params)
         device = leaves[0].device if leaves else "cpu"
 
-        def zeros(p):
-            return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        def zeros(p):  # a DTensor's moments take its placements
+            return torch.zeros_like(p, dtype=torch.float32)
         return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
                 "count": torch.zeros((), dtype=torch.int32, device=device)}
 

@@ -5,13 +5,13 @@ Gradients are quantized to int8 with a symmetric per-tensor scale, and the
 quantization residual is carried into the next step's gradient (ERROR
 FEEDBACK), so the compression bias vanishes over steps.
 
-The JAX package's ``cross_pod_mean`` (a ``psum`` of the int8 payloads over
-the "pod" axis of a mesh) is not ported: it waits for the distribution item
-of the port, which brings the process groups it would reduce over.
+``cross_pod_mean`` all-reduces the int8 payloads over the process group of
+a mesh's "pod" dim (the JAX package's ``psum`` inside ``shard_map``).
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.models.tree import tree_leaves
 
@@ -35,6 +35,26 @@ def compress_with_feedback(grad, residual):
     q, scale = quantize_int8(target)
     sent = dequantize_int8(q, scale)
     return q, scale, target - sent
+
+
+def cross_pod_mean(grad, residual, mesh, axis_name: str = "pod"):
+    """Error-feedback int8 mean of each pod's ``grad`` over the mesh dim
+    ``axis_name``: (mean, new_residual), this rank's tensors.
+
+    The int8 payloads are summed as int32 (exact for <= 2^23 pods) and
+    dequantized with the largest pod scale: one all-reduce of 1/4 the f32
+    bytes. This is the JAX package's arithmetic, and so is its caveat:
+    each payload was quantized with its own pod's scale, so the mean is
+    wrong wherever the pods' scales differ (ROADMAP, reference caveat 10).
+    """
+    q, scale, new_res = compress_with_feedback(grad, residual)
+    group = mesh.get_group(axis_name)
+    n = dist.get_world_size(group)
+    qsum = q.to(torch.int32)
+    dist.all_reduce(qsum, op=dist.ReduceOp.SUM, group=group)
+    smax = scale.clone()
+    dist.all_reduce(smax, op=dist.ReduceOp.MAX, group=group)
+    return qsum.to(torch.float32) * smax / n, new_res
 
 
 def tree_compress_stats(grads):

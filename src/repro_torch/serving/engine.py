@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.prewarm import CompileCache
+from repro_torch.dist.sharding import full, new_zeros, write_
 from repro_torch.models import model as M
 from repro_torch.models.params import check_device
 from repro_torch.models.transformer import _is_spec, cache_defs, cast_params
@@ -38,38 +39,43 @@ from repro_torch.models.tree import tree_map
 
 
 def _axis_trees(cfg):
-    """Trees (matching the cache structure) of the batch axis index and the
-    cache_seq axis index (or -1) for every cache leaf, derived from the
-    SpecDef logical axes — the single source of cache-layout truth."""
+    """Trees (matching the cache structure) of the batch axis index, the
+    cache_seq axis index (or -1) and the logical axes of every cache leaf,
+    derived from the SpecDefs — the single source of cache-layout truth."""
     defs = cache_defs(cfg, 1, 8)
     baxis = tree_map(lambda d: d.axes.index("batch"), defs, is_leaf=_is_spec)
     saxis = tree_map(
         lambda d: d.axes.index("cache_seq") if "cache_seq" in d.axes else -1,
         defs, is_leaf=_is_spec)
-    return baxis, saxis
+    axes = tree_map(lambda d: d.axes, defs, is_leaf=_is_spec)
+    return baxis, saxis, axes
 
 
-def pad_cache(caches, target_len: int, cur_len: int, cfg=None, saxis=None):
+def pad_cache(caches, target_len: int, cur_len: int, cfg=None, saxis=None,
+              axes=None):
     """Pad prefill caches (capacity == prompt len) to the generation budget.
 
     Attention caches grow along their cache_seq axis with zeros; ring
-    buffers already at their window size pass through.
+    buffers already at their window size pass through. A DTensor cache is
+    padded into a DTensor laid out by the ambient rules for its logical
+    ``axes`` (from ``cfg`` where not given), its values written into the
+    owning shards (``dist.sharding.write_``).
     """
     if target_len == cur_len:
         return caches
-    if saxis is None:
-        saxis = _axis_trees(cfg)[1]
+    if saxis is None or axes is None:
+        _, saxis, axes = _axis_trees(cfg)
 
-    def pad(leaf, ax):
+    def pad(leaf, ax, names):
         if ax < 0 or leaf.shape[ax] != cur_len:
             return leaf           # recurrent state / ring buffer
         shape = list(leaf.shape)
         shape[ax] = target_len
-        out = leaf.new_zeros(shape)
-        out.narrow(ax, 0, cur_len).copy_(leaf)
+        out = new_zeros(leaf, shape, names)
+        write_(out, ax, 0, leaf)
         return out
 
-    return tree_map(pad, caches, saxis)
+    return tree_map(pad, caches, saxis, axes)
 
 
 @dataclass
@@ -84,8 +90,10 @@ class Request:
 
 
 class ServingEngine:
-    """Single-device engine (the real thing runs one instance per platform
-    and GeoFF choreographs between them)."""
+    """One engine per platform (GeoFF choreographs between them). Run under
+    ``dist.sharding.use_sharding`` with params on a mesh
+    (``models.model.distribute_params``), its caches are DTensors laid out
+    by the rules, written in place into the owning shards."""
 
     def __init__(self, cfg, params, max_batch: int = 4,
                  max_len: int = 512, cache: Optional[CompileCache] = None,
@@ -104,7 +112,7 @@ class ServingEngine:
 
         self._prefill = lambda p, b: M.prefill(self.cfg, p, b)
         self._decode = lambda p, t, c, i: M.decode_step(self.cfg, p, t, c, i)
-        self._baxis, self._saxis = _axis_trees(self.cfg)
+        self._baxis, self._saxis, self._axes = _axis_trees(self.cfg)
         # slot-batched decode state
         self.slot_caches = None
         self.slot_tokens = torch.zeros((max_batch, 1), dtype=torch.int32,
@@ -141,19 +149,21 @@ class ServingEngine:
                                      device=self.device)[None, :]
             logits, caches = self._prefill(self.params, {"tokens": tokens})
             self.stats["prefills"] += 1
-            tok = int(torch.argmax(logits[0]))
+            tok = int(torch.argmax(full(logits)[0]))
             req.tokens.append(tok)
             req.t_first_token = time.perf_counter()
             self.stats["ttft_s"].append(req.t_first_token - req.t_submit)
-            caches = pad_cache(caches, self.max_len, T, saxis=self._saxis)
+            caches = pad_cache(caches, self.max_len, T, saxis=self._saxis,
+                               axes=self._axes)
             if self.slot_caches is None:
                 # materialize the slot-batched cache tree lazily
                 self.slot_caches = tree_map(
-                    lambda leaf, ax: leaf.new_zeros(
-                        leaf.shape[:ax] + (self.max_batch,) + leaf.shape[ax + 1:]),
-                    caches, self._baxis)
-            # slot insertion, in place
-            tree_map(lambda sc, c, ax: sc.narrow(ax, slot, 1).copy_(c),
+                    lambda leaf, ax, names: new_zeros(
+                        leaf, leaf.shape[:ax] + (self.max_batch,)
+                        + leaf.shape[ax + 1:], names),
+                    caches, self._baxis, self._axes)
+            # slot insertion, in place (into the owning shard of a DTensor)
+            tree_map(lambda sc, c, ax: write_(sc, ax, slot, c),
                      self.slot_caches, caches, self._baxis)
             self.slot_tokens[slot, 0] = tok
             self.slot_pos[slot] = T
@@ -171,7 +181,7 @@ class ServingEngine:
         logits, self.slot_caches = self._decode(
             self.params, self.slot_tokens, self.slot_caches, cur)
         self.stats["decode_steps"] += 1
-        toks = torch.argmax(logits, -1).cpu().numpy()
+        toks = torch.argmax(full(logits), -1).cpu().numpy()
         finished = []
         for slot, req in list(self.active.items()):
             tok = int(toks[slot])

@@ -14,10 +14,13 @@ Fault tolerance:
     (the data stream is step-addressable, so the token sequence is exact),
   - straggler mitigation: per-step wall times feed an EWMA; a step slower
     than ``straggler_factor`` x the EWMA is recorded and fires
-    ``on_straggler``.
+    ``on_straggler``,
+  - elastic re-mesh: ``remesh(new_mesh)`` moves params and optimizer state
+    onto another ``DeviceMesh`` mid-run (their values and the step count
+    unchanged).
 
-Elastic re-mesh (``remesh``) and a mesh argument wait for the distribution
-item of the port and raise.
+With a ``mesh`` the params, m, v and every batch are DTensors laid out by
+the training rules, and each step runs under ``use_sharding(mesh, rules)``.
 """
 from __future__ import annotations
 
@@ -33,13 +36,11 @@ import torch
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core.prewarm import CompileCache, TensorSpec
 from repro_torch.core.timing import EWMA
-from repro_torch.data.pipeline import make_train_iterator
+from repro_torch.data.pipeline import make_train_iterator, place_batch
+from repro_torch.dist import sharding as shd
 from repro_torch.models import model as M
 from repro_torch.models.params import check_device
 from repro_torch.optim import AdamW, AdamWConfig
-
-_NO_MESH = ("meshes and re-meshing wait for the distribution item of the port "
-            "(ROADMAP queue 1); the trainer runs on one device")
 
 
 @dataclass
@@ -57,11 +58,13 @@ class TrainerConfig:
 class Trainer:
     def __init__(self, cfg, tcfg: TrainerConfig, mesh=None, rules=None,
                  device="cuda"):
-        if mesh is not None or rules is not None:
-            raise NotImplementedError(_NO_MESH)
+        """``device`` is the mesh's device type where a mesh is given."""
         self.cfg = cfg
         self.tcfg = tcfg
-        self.device = check_device(device)
+        self.mesh = mesh
+        self.rules = rules or (shd.train_rules() if mesh is not None else None)
+        self.device = check_device(mesh.device_type if mesh is not None
+                                   else device)
         self.opt = AdamW(tcfg.adamw)
         self.ckpt = CheckpointManager(tcfg.checkpoint_dir)
         self.cache = CompileCache()
@@ -79,12 +82,31 @@ class Trainer:
     def init_state(self):
         gen = torch.Generator(device=self.device).manual_seed(self.tcfg.seed)
         self.params = M.init_params(self.cfg, gen, self.device)
+        if self.mesh is not None:
+            self.params = self._placed(self.params)
         self.opt_state = self.opt.init(self.params)
         return self
 
+    def _placed(self, tree):
+        """``tree`` (params, or m or v) as DTensors on the mesh in the
+        rules' placements (``M.distribute_params``)."""
+        return M.distribute_params(tree, M.param_defs(self.cfg), self.rules,
+                                   self.mesh)
+
+    def _ctx(self):
+        if self.mesh is not None:
+            return shd.use_sharding(self.mesh, self.rules)
+        return shd.use_sharding(None, None)
+
     # -- train step (pre-warmed) ---------------------------------------------------
     def _build_step(self):
-        self._step_fn = M.make_train_step(self.cfg, self.opt)
+        train_step = M.make_train_step(self.cfg, self.opt)
+
+        def step_fn(params, opt_state, batch, step):
+            with self._ctx():
+                return train_step(params, opt_state, batch, step)
+
+        self._step_fn = step_fn
         return self._step_fn
 
     def prewarm(self, example_batch):
@@ -106,7 +128,10 @@ class Trainer:
                     for k, v in example_batch.items()}
 
         def warm(batch):
-            M.value_and_grad(self.cfg, self.params, batch)
+            with self._ctx():
+                if self.mesh is not None:
+                    batch = place_batch(batch, self.mesh, self.rules)
+                M.value_and_grad(self.cfg, self.params, batch)
             return step_fn
 
         self.cache.warm("train_step", "trainer", warm, (abstract,)).result()
@@ -117,13 +142,26 @@ class Trainer:
         if latest is None:
             return False
         tree = {"params": self.params, "opt": self.opt_state}
-        restored = self.ckpt.restore(latest, tree, self.device)
+        # DTensor leaves come back in their own placements on the mesh
+        restored = self.ckpt.restore(
+            latest, tree, None if self.mesh is not None else self.device)
         self.params, self.opt_state = restored["params"], restored["opt"]
         self.step = latest
         return True
 
     def remesh(self, new_mesh, new_rules=None):
-        raise NotImplementedError(_NO_MESH)
+        """Elastic re-mesh: params, m and v gathered from the old mesh and
+        laid out on ``new_mesh`` (each rank keeps its chunk); ``count`` and
+        every value are unchanged."""
+        self.mesh = new_mesh
+        self.rules = new_rules or self.rules or shd.train_rules()
+        self.device = check_device(new_mesh.device_type)
+        self.params = self._placed(self.params)
+        self.opt_state = {"m": self._placed(self.opt_state["m"]),
+                          "v": self._placed(self.opt_state["v"]),
+                          "count": self.opt_state["count"].to(self.device)}
+        self._step_fn = None  # rebuilt for the new mesh
+        return self
 
     # -- the loop --------------------------------------------------------------------
     def run(self, steps: Optional[int] = None, inject_straggler_at=None):
@@ -132,8 +170,9 @@ class Trainer:
             self.init_state()
             self.maybe_restore()
         it = make_train_iterator(self.cfg, self.tcfg.seq_len,
-                                 self.tcfg.global_batch, start_step=self.step,
-                                 seed=self.tcfg.seed, device=self.device)
+                                 self.tcfg.global_batch, self.mesh, self.rules,
+                                 start_step=self.step, seed=self.tcfg.seed,
+                                 device=self.device)
         self._build_step()
         end = self.step + steps
         while self.step < end:
@@ -144,7 +183,7 @@ class Trainer:
                 time.sleep(max(0.2, 10 * (self.step_time.value or 0.02)))
             self.params, self.opt_state, metrics = self._step_fn(
                 self.params, self.opt_state, batch, self.step)
-            loss = float(metrics["loss"])  # waits for the step
+            loss = float(shd.full(metrics["loss"]))  # waits for the step
             dt = time.perf_counter() - t0
             if (self.step_time.n > 3
                     and dt > self.tcfg.straggler_factor
@@ -156,7 +195,7 @@ class Trainer:
                 self.step_time.update(dt)
             self.metrics_log.append(
                 {"step": self.step, "loss": loss,
-                 "grad_norm": float(metrics["grad_norm"]), "dt": dt})
+                 "grad_norm": float(shd.full(metrics["grad_norm"])), "dt": dt})
             self.step += 1
             if self.step % self.tcfg.checkpoint_every == 0:
                 self.ckpt.save(self.step, {"params": self.params,

@@ -359,3 +359,41 @@ def test_adapt_telemetry_costs_and_controller_decisions_equal():
     t = _adapt_stream("torch", 120, 60)
     assert j[1], "the drifted stream never recomposed"
     assert j == t
+
+
+# -- launch/analytic.py: CellModel on every live cell at both H100 meshes ------
+def _live_cells():
+    from repro.configs.base import applicable_shapes
+    return [(a, s.name) for a in jreg.ARCH_IDS
+            for s in applicable_shapes(jreg.get_config(a))]
+
+
+@pytest.mark.parametrize("arch,shape", _live_cells())
+def test_cell_model_equal_on_h100_meshes(arch, shape):
+    """The copy of ``repro/launch/analytic.py`` gives the reference's numbers
+    for the cell on the single-pod (32 x 8) and multi-pod (2 x 32 x 8)
+    meshes, at the dry-run's micro-batch plan."""
+    from repro.configs.base import SHAPES as JSHAPES
+    from repro.launch.analytic import CellModel as JCellModel
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch.analytic import CellModel
+    from repro_torch.launch.dryrun import cell_defaults, micro_batch_plan
+    from repro_torch.launch.mesh import MULTI_POD, SINGLE_POD
+
+    class FakeMesh:
+        def __init__(self, shape):
+            self.shape = shape
+
+    for sizes, names in (SINGLE_POD, MULTI_POD):
+        ms = dict(zip(names, sizes))
+        s = SHAPES[shape]
+        micro = micro_batch_plan(s, FakeMesh(ms))[0] if s.kind == "train" else 0
+        cfg = cell_defaults(treg.get_config(arch), s)
+        jcfg = jreg.get_config(arch).replace(**{
+            k: getattr(cfg, k) for k in ("remat", "attn_chunk_q", "ce_chunk")})
+        got, want = CellModel(cfg, s, ms, micro), JCellModel(jcfg, JSHAPES[shape], ms, micro)
+        for f in ("corrections_dev", "bytes_corrections_dev",
+                  "model_flops_analytic_dev"):
+            assert getattr(got, f)() == getattr(want, f)(), (f, sizes)
+        assert got.hbm_bytes_dev(4) == want.hbm_bytes_dev(4)
+        assert got.attn_layer_flops_dev() == want.attn_layer_flops_dev()

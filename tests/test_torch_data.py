@@ -2,7 +2,8 @@
 ``ShardedLoader`` are copies of the JAX package's and yield the same
 batches (pinned here for several seeds, steps and shapes); the device path
 (``shard_batch``, ``make_train_iterator``) on the CPU hands the same values
-over as tensors; sharding arguments raise."""
+over as tensors; with a one-rank gloo mesh the same values as DTensors
+laid out by the rules' batch axis."""
 import numpy as np
 import pytest
 import torch
@@ -44,9 +45,30 @@ def test_shard_batch_and_iterator_on_the_cpu():
             b["labels"].numpy(), SyntheticCorpus(cfg.vocab_size, 16, 3).batch(step, 4)["labels"])
 
 
-def test_sharding_arguments_raise():
-    batch = SyntheticCorpus(256, 8).batch(0, 2)
-    with pytest.raises(NotImplementedError, match="distribution"):
-        shard_batch(batch, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="distribution"):
-        make_train_iterator(smoke_config("qwen3-1.7b"), 8, 2, rules={}, device="cpu")
+@pytest.fixture
+def host_mesh():
+    """A (1, 1) host mesh on a one-rank gloo group, destroyed after."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    started = not dist.is_initialized()
+    yield make_host_mesh(device="cpu")
+    if started:
+        dist.destroy_process_group()
+
+
+def test_shard_batch_and_iterator_on_a_mesh(host_mesh):
+    from torch.distributed.tensor import DTensor, Replicate
+    from repro_torch.dist.sharding import train_rules
+    cfg = smoke_config("qwen3-1.7b")
+    want = SyntheticCorpus(cfg.vocab_size, 16, 3).batch(2, 4)
+    got = shard_batch(want, host_mesh, train_rules())
+    for k, v in got.items():
+        assert isinstance(v, DTensor) and v.placements == (Replicate(), Replicate())
+        np.testing.assert_array_equal(v.full_tensor().numpy(), want[k])
+    it = make_train_iterator(cfg, 16, 4, host_mesh, train_rules(), start_step=2, seed=3)
+    for step in (2, 3):
+        b = next(it)
+        assert isinstance(b["tokens"], DTensor)
+        np.testing.assert_array_equal(
+            b["labels"].full_tensor().numpy(),
+            SyntheticCorpus(cfg.vocab_size, 16, 3).batch(step, 4)["labels"])

@@ -124,13 +124,50 @@ def test_route_slots_equal_jax_loop(capacity_factor):
     assert C == max(1, int(xg.shape[1] * K / E * capacity_factor))
 
 
-def test_moe_under_a_mesh_raises():
+class _FakeMesh:
+    def __init__(self, shape):
+        self.shape = shape
+
+
+@pytest.mark.parametrize("shape,n", [({"data": 2, "model": 2}, 48),
+                                     ({"pod": 2, "data": 4, "model": 8}, 64),
+                                     ({"pod": 2, "data": 4, "model": 8}, 12),
+                                     ({"data": 1, "model": 4}, 48)],
+                         ids=["2x2", "multipod", "multipod-indivisible", "1x4"])
+def test_moe_batch_groups_equal_the_reference(shape, n):
+    """The routing groups under a mesh: the reference's ``_batch_groups``
+    (its "batch" axes' sizes, 1 where they do not divide the tokens)."""
+    from repro.dist.sharding import use_sharding as jax_use_sharding
+    from repro.dist.sharding import rules_for as jrules_for
+    from repro_torch.dist.sharding import rules_for
+    mp = "pod" in shape
+    with use_sharding(_FakeMesh(shape), rules_for("train", multi_pod=mp)):
+        got = layers._batch_groups(n)
+    with jax_use_sharding(_FakeMesh(shape), jrules_for("train", multi_pod=mp)):
+        want = jlayers._batch_groups(n)
+    assert got == want
+
+
+def test_moe_on_a_one_rank_mesh_equals_the_unmeshed_layer():
+    """On a (1, 1) gloo mesh the layer runs on DTensors in one group and
+    gives the unmeshed layer's output and aux loss exactly."""
+    import torch.distributed as dist
+    from repro_torch.dist.sharding import train_rules
+    from repro_torch.launch.mesh import make_host_mesh
     cfg = smoke_config("granite-moe-3b-a800m")
     p, x = _layer_inputs(cfg, seed=6)
-    with use_sharding(object(), object()):
-        with pytest.raises(NotImplementedError, match="mesh"):
-            layers.moe(cfg, {k: torch.from_numpy(v) for k, v in p.items()},
-                       torch.from_numpy(x))
+    p = {k: torch.from_numpy(v) for k, v in p.items()}
+    want, want_aux = layers.moe(cfg, p, torch.from_numpy(x))
+    started = not dist.is_initialized()
+    try:
+        mesh = make_host_mesh(device="cpu")
+        with use_sharding(mesh, train_rules()):
+            got, aux = layers.moe(cfg, p, torch.from_numpy(x))
+        assert torch.equal(got.full_tensor(), want)
+        assert torch.equal(torch.as_tensor(aux.full_tensor()), want_aux)
+    finally:
+        if started:
+            dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("arch", ARCHS)

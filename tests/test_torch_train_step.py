@@ -163,10 +163,40 @@ def test_state_and_grad_acc_defs_match_jax():
     assert sig(AdamW().state_defs(pdefs), True) == sig(JAdamW().state_defs(jdefs), False)
 
 
-def test_sharding_arguments_raise():
-    cfg = get_config("qwen3-1.7b")
-    with pytest.raises(NotImplementedError, match="distribution"):
-        M.input_specs(cfg, SHAPES["train_4k"], rules={}, device="cpu")
-    with pytest.raises(NotImplementedError, match="distribution"):
-        M.spec_structs(M.batch_defs(cfg, SHAPES["train_4k"]), mesh=object(),
-                       device="cpu")
+class _FakeMesh:
+    def __init__(self, shape):
+        self.shape = shape
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "granite-moe-3b-a800m", "mamba2-370m",
+                                  "llava-next-34b"])
+def test_spec_pspecs_of_every_cell_equal_the_reference(arch):
+    """Input and param partition specs of the arch's cells, on the
+    production meshes' shapes and a multi-pod one: the reference's."""
+    from repro.dist import sharding as jshd
+    from repro.models import params as jprm
+    from repro_torch.dist import sharding as shd
+    from repro_torch.models import params as prm
+    cfg, jcfg = get_config(arch), jget_config(arch)
+    for shape, mp in (({"data": 32, "model": 8}, False), ({"data": 16, "model": 16}, False),
+                      ({"pod": 2, "data": 32, "model": 8}, True)):
+        mesh = _FakeMesh(shape)
+        for s in japplicable(jcfg):
+            rules, jrules = (shd.rules_for(s.kind, multi_pod=mp),
+                             jshd.rules_for(s.kind, multi_pod=mp))
+            defs = (M.decode_input_defs(cfg, SHAPES[s.name]) if s.kind == "decode"
+                    else M.batch_defs(cfg, SHAPES[s.name]))
+            jdefs = (JM.decode_input_defs(jcfg, s) if s.kind == "decode"
+                     else JM.batch_defs(jcfg, s))
+            got = [tuple(x) for x in tree_leaves(M.spec_pspecs(defs, rules, mesh),
+                                                 is_leaf=lambda x: isinstance(x, shd.PartitionSpec))]
+            want = [tuple(x) for x in jax.tree_util.tree_leaves(
+                JM.spec_pspecs(jdefs, jrules, mesh),
+                is_leaf=lambda x: type(x).__name__ == "PartitionSpec")]
+            assert got == want, (arch, s.name, shape)
+        got = tree_leaves(prm.param_pspecs(M.param_defs(cfg), rules, mesh),
+                          is_leaf=lambda x: isinstance(x, shd.PartitionSpec))
+        want = jax.tree_util.tree_leaves(
+            jprm.param_pspecs(JM.param_defs(jcfg), jrules, mesh),
+            is_leaf=lambda x: type(x).__name__ == "PartitionSpec")
+        assert [tuple(x) for x in got] == [tuple(x) for x in want]

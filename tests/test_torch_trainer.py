@@ -1,7 +1,7 @@
 """The port's fault-tolerant ``Trainer`` (``repro_torch.train``) on the CPU:
 the tests of ``tests/test_trainer.py`` re-pointed (loss falls, a restart
-resumes identically, stragglers are detected; the elastic re-mesh is not
-ported and raises), ``prewarm`` leaves the state bit for bit as it was, and
+resumes identically, stragglers are detected, the elastic re-mesh
+continues on a one-rank gloo mesh), ``prewarm`` leaves the state bit for bit as it was, and
 state carried across: the JAX package's Trainer runs 6 steps into a
 directory, the port's Trainer resumes there for 6 more, and its losses
 continue the reference's straight 12-step run.
@@ -96,17 +96,29 @@ def test_straggler_detection(cfg, tmp_path):
     assert fired == [10]
 
 
-def test_elastic_remesh_is_not_ported(cfg, tmp_path):
-    """The reference's test_elastic_remesh_continues needs a mesh; the port
-    has none yet (the distribution item) and says so."""
-    tr = trainer(cfg, tcfg(tmp_path, total_steps=2))
-    tr.run(2)
-    with pytest.raises(NotImplementedError, match="distribution"):
-        tr.remesh(object())
-    with pytest.raises(NotImplementedError, match="distribution"):
-        Trainer(cfg, tcfg(tmp_path), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="distribution"):
-        Trainer(cfg, tcfg(tmp_path), rules={}, device="cpu")
+def test_elastic_remesh_continues(cfg, tmp_path):
+    """Re-shard live state onto a different mesh and keep training: a
+    one-rank gloo host mesh (the reference's one-device host mesh)."""
+    import torch.distributed as dist
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh
+    tr = trainer(cfg, tcfg(tmp_path, total_steps=4))
+    tr.run(4)
+    leaf_before = tree_leaves(tr.params)[0].clone()
+    count_before = int(tr.opt_state["count"])
+    started = not dist.is_initialized()
+    try:
+        mesh = make_host_mesh(model_parallel=1, device="cpu")  # 1-rank "new topology"
+        tr.remesh(mesh, shd.train_rules())
+        # state preserved EXACTLY across the re-shard (no re-init)
+        assert torch.equal(tree_leaves(tr.params)[0].full_tensor(), leaf_before)
+        assert int(tr.opt_state["count"]) == count_before
+        log = tr.run(4)
+        assert len(log) == 8
+        assert np.isfinite(log[-1]["loss"])
+    finally:
+        if started:
+            dist.destroy_process_group()
 
 
 # -- the port's own -------------------------------------------------------------------
