@@ -216,7 +216,7 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core import (Deployment, ObjectStore, Platform,  # noqa: E402
                               PlatformRegistry, Prefetcher, StepSpec,
-                              TensorSpec, WorkflowSpec, DataRef)
+                              StreamConfig, TensorSpec, WorkflowSpec, DataRef)
 from repro_torch.adapt import (  # noqa: E402
     AdaptiveDeployment, PlacementScorer, RecompositionController, TelemetryHub)
 from repro_torch.core import simulator as SIM  # noqa: E402
@@ -266,7 +266,7 @@ ENCODER_FRAMES = 512  # hubert-xlarge: frames of a request (a ~10 s clip)
 INIT_SLACK = 1e9  # the init peak's allowance beyond its two named parts
 BATCH_PROMPTS = (256, 512)  # continuous batching: prompt lengths drawn here
 KERNELS = ("flash_attention", "flash_attention_mma", "flash_attention_f32",
-           "cold_scan", "ssd_scan", "rglru_scan", "rmsnorm")  # the sources, one nvcc each
+           "cold_scan", "ssd_scan", "rglru_scan", "rmsnorm")  # one nvcc each
 SIM_SEEDS = 16  # the full-size sweep: 16 seeds x 256 placements x 4096 requests
 SIM_REQUESTS = 4096
 COLD_SCAN_FULL = (4096, 4096)  # (B, T) of one node of that sweep
@@ -406,7 +406,8 @@ def phase_build() -> dict:
         for line in build.build_logs.get(name, "").splitlines():
             if "warning" in line.lower() or "Performance Loss" in line:
                 log(f"[build]   {name}: {line.strip()[:300]}")
-        res[name] = {k: {"registers": r, "spill_stores": sp} for k, (r, sp) in per.items()}
+        res[name] = {k: {"registers": r, "spill_stores": sp}
+                     for k, (r, sp) in per.items()}
     log(f"[build] all kernels built in {dt:.1f} s")
     return res
 
@@ -488,7 +489,8 @@ def tile_cost(d, H, K, seed) -> dict:
         want = flash_attention_plain(q, k, v, causal=False).float()
         if not torch.allclose(out.float(), want, atol=TOL[torch.bfloat16],
                               rtol=TOL[torch.bfloat16]):
-            fail(f"flash_attention non-causal T={T} d={d} disagrees with its plain version")
+            fail(f"flash_attention non-causal T={T} d={d} disagrees with its "
+                 "plain version")
         ms.append(device_ms(lambda: flash_attention(q, k, v, causal=False)))
     tile_us = (ms[1] - ms[0]) / 8 * 1e3
     kv_bytes = 128 * 8 * 2 * 64 * d * 2  # 8 more K and V tiles for 128 blocks
@@ -576,7 +578,8 @@ def phase_kernels() -> dict:
              ("(r) GQA 3 ragged T", 1, 300, 300, 24, 8, 64, bf16, True, None, 20),
              ("(s) GQA 16 ragged T", 1, 300, 300, 16, 1, 256, bf16, True, 2048, 21),
              ("(t) B = 2 ragged S", 2, 200, 200, 8, 4, 128, bf16, True, None, 22),
-             ("(u) window inside a kv tile", 1, 256, 256, 8, 2, 128, bf16, True, 20, 23),
+             ("(u) window inside a kv tile", 1, 256, 256, 8, 2, 128, bf16, True, 20,
+              23),
              ("(v) long kv walks", 1, 1000, 1000, 2, 1, 128, bf16, True, None, 24),
              ("(w) long kv walks, d=64", 1, 700, 700, 6, 2, 64, bf16, True, None, 25))
     # the head dims of neither wgmma nor the served models: mma.sync in bf16
@@ -797,7 +800,8 @@ def rmsnorm_bound(nbytes, n) -> tuple:
 
 
 RMSNORM_CALLS = {  # prologue: (kernel, plain version)
-    "none": (lambda x, h, w: rmsnorm(x, w, EPS), lambda x, h, w: rmsnorm_plain(x, w, EPS)),
+    "none": (lambda x, h, w: rmsnorm(x, w, EPS),
+             lambda x, h, w: rmsnorm_plain(x, w, EPS)),
     "add": (lambda x, h, w: add_rmsnorm(x, h, w, EPS),
             lambda x, h, w: add_rmsnorm_plain(x, h, w, EPS)),
     "gate": (lambda x, h, w: gated_rmsnorm(x, h, w, EPS),
@@ -812,7 +816,8 @@ def rmsnorm_case(g, name, shape, dtype, w_dtype, offset=0, timed=False, kind="no
     add's sum s must equal the eager add's exactly; the norm is held to
     RMSNORM_TOL of its dtype. ``timed``: the kernel, the plain version and
     (no prologue) F.rms_norm on the f32 input, beside the bound."""
-    x, h, w = rmsnorm_inputs(g, shape, dtype, b_dtype or dtype, w_dtype, offset, b_width)
+    x, h, w = rmsnorm_inputs(g, shape, dtype, b_dtype or dtype, w_dtype, offset,
+                             b_width)
     kernel, plain = RMSNORM_CALLS[kind]
     got, want = kernel(x, h, w), None
     sync()
@@ -853,7 +858,8 @@ def rmsnorm_case(g, name, shape, dtype, w_dtype, offset=0, timed=False, kind="no
         res.update(bound_ms=bound, bound_by=by, bytes=nbytes, shape=list(shape))
         log(f"[rmsnorm]   kernel {res['ms'] * 1e3:.2f} us | plain "
             f"{res['plain_ms'] * 1e3:.2f} us{lib} | bound {bound * 1e3:.4f} us "
-            f"({by}: {nbytes / 1e6:.4f} MB) | {bound / res['ms'] * 100:.1f}% of the bound")
+            f"({by}: {nbytes / 1e6:.4f} MB) | "
+            f"{bound / res['ms'] * 100:.1f}% of the bound")
     return res
 
 
@@ -921,7 +927,8 @@ def phase_rmsnorm() -> dict:
               ("(bf16 y, f32 z)", "gate", (4, 2048), bf16, f32, bf16, 0, None),
               ("(f32 y, bf16 z)", "gate", (4, 2048), f32, bf16, f32, 0, None),
               ("(f32, f32)", "gate", (3, 1024), f32, f32, f32, 0, None),
-              ("(mamba2 prefill, z sliced)", "gate", (1, 300, 2048), bf16, bf16, bf16, 0,
+              ("(mamba2 prefill, z sliced)", "gate", (1, 300, 2048), bf16, bf16, bf16,
+               0,
                MAMBA2_Z_WIDTH),
               ("(z sliced, no vector stride)", "gate", (7, 2048), bf16, bf16, bf16, 0,
                2051),
@@ -1248,7 +1255,8 @@ def phase_federated(cfg, params, prompts, registry=None):
                 for node, t in r.timeline.items())
             what = (f"prompt {len(prompt)}" if cfg.supports_decode else "")
             if ref is not None:
-                what += f" {'+ ' if what else ''}{ref.key} {tuple(stored[ref.key].shape)}"
+                what += (f" {'+ ' if what else ''}{ref.key} "
+                         f"{tuple(stored[ref.key].shape)}")
             log(f"[serving] request {i} ({'cold' if i == 0 else 'warm'}) {what}: "
                 f"total_s={r.total_s:.4f} | {tl}")
             results.append({"prompt": len(prompt) if cfg.supports_decode else 0,
@@ -1562,8 +1570,10 @@ def _profiled(fn):
     n_kernels = 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
-            kernels[e.name] = kernels.get(e.name, 0.0) + e.time_range.elapsed_us() * 1e-6
-            n_kernels += "memcpy" not in e.name.lower() and "memset" not in e.name.lower()
+            kernels[e.name] = (kernels.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() * 1e-6)
+            low = e.name.lower()
+            n_kernels += "memcpy" not in low and "memset" not in low
     ops = sorted(((a.self_device_time_total * 1e-6, a.count, a.key, str(a.input_shapes))
                   for a in prof.key_averages(group_by_input_shape=True)
                   if a.self_device_time_total > 0), reverse=True)
@@ -1602,9 +1612,11 @@ def phase_profile(cfg, params, batch):
             f"{len(kernels)} kernel names, {n_kernels / passes:g} device kernels "
             f"a {'prefill' if passes == 1 else 'decode step'}")
         if not kernels:
-            log("[profile]   device time not measured: the profiler recorded no kernels")
+            log("[profile]   device time not measured: the profiler recorded no "
+                "kernels")
         for kname, ks in top:
-            log(f"[profile]   {100 * ks / busy if busy else 0:5.1f}% {ks * 1e3:8.3f} ms  "
+            share = 100 * ks / busy if busy else 0
+            log(f"[profile]   {share:5.1f}% {ks * 1e3:8.3f} ms  "
                 f"{kname[:90]}")
         for ds, calls, op, shapes in ops[:4]:
             log(f"[profile]   op {ds * 1e3:8.3f} ms x{calls} {op} {shapes[:100]}")
@@ -1734,7 +1746,8 @@ def phase_prologue_ab(cfg, params, prompt) -> dict:
     run = ab_turn(cfg, params, tokens, caches, tok, len(prompt))
 
     def decode_kernels():
-        return _profiled(lambda: M.decode_step(cfg, params, tok, caches, len(prompt)))[3]
+        return _profiled(
+            lambda: M.decode_step(cfg, params, tok, caches, len(prompt)))[3]
 
     walls = {"fused": [], "unfused": []}
     for turn in PROLOGUE_AB_TURNS:
@@ -1755,7 +1768,8 @@ def phase_prologue_ab(cfg, params, prompt) -> dict:
         f"{f['decode_step_s'] * 1e3:.2f} vs {u['decode_step_s'] * 1e3:.2f} ms "
         f"({(f['decode_step_s'] / u['decode_step_s'] - 1) * 100:+.1f}%); minima "
         f"{f['prefill_min_s'] * 1e3:.2f} vs {u['prefill_min_s'] * 1e3:.2f} ms, "
-        f"{f['decode_step_min_s'] * 1e3:.2f} vs {u['decode_step_min_s'] * 1e3:.2f} ms; device "
+        f"{f['decode_step_min_s'] * 1e3:.2f} vs "
+        f"{u['decode_step_min_s'] * 1e3:.2f} ms; device "
         f"kernels a decode step {f['decode_kernels']} vs {u['decode_kernels']}")
     return res
 
@@ -1794,7 +1808,8 @@ def scan_check(name, t0, warm, cold, kw, dtype):
     err = int(diff.max()) if diff.numel() else 0
     cold_share = float(want.float().mean())
     B, T = warm.shape
-    nch, tpc = cold_scan_plan(B, T, torch.cuda.get_device_properties(DEV).multi_processor_count)
+    sms = torch.cuda.get_device_properties(DEV).multi_processor_count
+    nch, tpc = cold_scan_plan(B, T, sms)
     log(f"[cold_scan] {name} {str(dtype)[6:]}: B={B} T={T} ({nch} chunks of {tpc} "
         f"tiles a row) cold share {cold_share:.3f} mismatches {bad} max_abs_err {err} "
         f"{'ok' if err <= COLD_SCAN_TOL else 'FAIL'}")
@@ -2149,7 +2164,8 @@ def phase_scorer_scan(args) -> dict:
     nbytes = cold_scan_bytes(B, T, warm.dtype)
     t_bytes = nbytes / HBM_BPS * 1e3
     t_ops = 3 * B * T / PEAK_FLOPS[torch.float32] * 1e3
-    res = {"shape": [B, T], "dtype": str(warm.dtype)[6:], "ms": ms, "plain_ms": plain_ms,
+    res = {"shape": [B, T], "dtype": str(warm.dtype)[6:], "ms": ms,
+           "plain_ms": plain_ms,
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "bytes": nbytes,
            "max_abs_err": 0, "library_ms": None}
@@ -2735,7 +2751,8 @@ def phase_window(cfg, params):
                                  f"differ from the plain path: {diff} > "
                                  f"{TOL[torch.bfloat16]} * {scale}")
     log(f"[checks] window: prompt {WINDOW_PROMPT} > window {cfg.local_window}, "
-        f"ring buffers of {ring[0]} slots in {', '.join(slots)}, prefill + {WINDOW_DECODE} decode steps "
+        f"ring buffers of {ring[0]} slots in {', '.join(slots)}, prefill + "
+        f"{WINDOW_DECODE} decode steps "
         f"(positions {WINDOW_PROMPT}..{WINDOW_PROMPT + WINDOW_DECODE - 1}, ring "
         f"slots {WINDOW_PROMPT % cfg.local_window}..): kernel vs plain logits, "
         f"worst max_abs_diff / max_abs_logit {worst:.4g} (tol "
@@ -2898,6 +2915,9 @@ def serve_model(arch) -> dict:
     if arch == MESH_ARCH:
         extra["mesh"] = phase_mesh_serving(cfg, params, prompts, requests, batching)
         memory_mark(memory, "mesh")
+    if arch == STREAM_ARCH:
+        extra["stream"] = phase_stream(cfg, params, prompts, requests)
+        memory_mark(memory, "stream")
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -2992,7 +3012,8 @@ def train_full() -> dict:
     step under the profiler and the kernels under grad (d) on its
     weights."""
     cfg = get_config(TRAIN_ARCH)
-    if cfg.use_pallas or cfg.param_dtype != "float32" or cfg.compute_dtype != "bfloat16":
+    if (cfg.use_pallas or cfg.param_dtype != "float32"
+            or cfg.compute_dtype != "bfloat16"):
         raise AssertionError(f"{TRAIN_ARCH} does not train on the jnp path in "
                              f"float32/bf16: {cfg.use_pallas}, {cfg.param_dtype}, "
                              f"{cfg.compute_dtype}")
@@ -3014,7 +3035,8 @@ def train_full() -> dict:
     log(f"[train] {TRAIN_ARCH}: {cfg.num_layers} layers d_model={cfg.d_model} "
         f"heads={cfg.num_heads}/{cfg.num_kv_heads} head_dim={cfg.head_dim} "
         f"vocab={cfg.vocab_size}: {n_params / 1e9:.3f} B params, float32 master "
-        f"{params_b / 1e9:.2f} GB + m/v {opt_b / 1e9:.2f} GB on {DEV} ({init_s:.1f} s); "
+        f"{params_b / 1e9:.2f} GB + m/v {opt_b / 1e9:.2f} GB on {DEV} "
+        f"({init_s:.1f} s); "
         f"disk free by the checkpoint dir {free / 1e9:.1f} GB")
 
     example = SyntheticCorpus(cfg.vocab_size, T, tc.seed).batch(0, B)
@@ -3063,7 +3085,8 @@ def train_full() -> dict:
         + " ".join(f"{x:.3f}" for x in losses) + f"; grad norms {gnorms[0]:.3g} .. "
         f"{gnorms[-1]:.3g}; last 4's mean {last:.4f} below the first 4's {first:.4f} "
         f"and step 0's {losses[0]:.4f}")
-    log(f"[train] warm step wall median {step_s * 1e3:.2f} ms (min {min(dts) * 1e3:.2f}, "
+    log(f"[train] warm step wall median {step_s * 1e3:.2f} ms "
+        f"(min {min(dts) * 1e3:.2f}, "
         f"max {max(dts) * 1e3:.2f}), {B * T / step_s:.0f} tokens/s; run() "
         f"{run_s:.2f} s with the final save; peak max_memory_allocated "
         f"{peak / 1e9:.2f} GB beside params + m/v + grads {reckoned / 1e9:.2f} GB; "
@@ -3094,11 +3117,13 @@ def train_full() -> dict:
             "prewarm_s": prewarm_s, "prewarm_peak_bytes": prewarm_peak,
             "peak_bytes": peak, "params_bytes": params_b, "opt_bytes": opt_b,
             "reckoned_bytes": reckoned, "ckpt_bytes": ckpt_bytes,
-            "ckpt_snapshot_s": ck.stats["blocked_s"], "ckpt_write_s": ck.stats["save_s"],
+            "ckpt_snapshot_s": ck.stats["blocked_s"],
+            "ckpt_write_s": ck.stats["save_s"],
             "launches": launches, "profile": {
                 "wall_s": wall, "device_busy_s": busy, "device_kernels": n_kernels,
                 "top": [[k[:90], v] for k, v in top],
-                "top_ops": [[op, sh[:100], calls, ds] for ds, calls, op, sh in ops[:4]]},
+                "top_ops": [[op, sh[:100], calls, ds]
+                            for ds, calls, op, sh in ops[:4]]},
             "forward_kernels": guard}
 
 
@@ -3147,7 +3172,8 @@ def train_kernels_forward(cfg, params, batch) -> dict:
              "rmsnorm": lambda t: rmsnorm(t, w),
              "add_rmsnorm": lambda t: add_rmsnorm(t, x, w),
              "gated_rmsnorm": lambda t: gated_rmsnorm(x, t, w),
-             "ssd_scan": lambda t: ssd_scan(t, dt, torch.zeros(2, device=DEV), bm, bm, 64),
+             "ssd_scan": lambda t: ssd_scan(t, dt, torch.zeros(2, device=DEV), bm, bm,
+                                            64),
              "rglru_scan": lambda t: rglru_scan(la, t)}
     args = {"rglru_scan": la.clone()}
     refused = []
@@ -3253,11 +3279,13 @@ def train_f32_check() -> dict:
         cpu_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         gpu, gst, gm = step(gpu, opt.init(gpu),
-                            {k: torch.from_numpy(v).to(DEV) for k, v in batch.items()}, 0)
+                            {k: torch.from_numpy(v).to(DEV)
+                             for k, v in batch.items()}, 0)
         sync()
         gpu_s = time.perf_counter() - t0
         loss_rel = abs(float(gm["loss"]) - float(cm["loss"])) / abs(float(cm["loss"]))
-        gn_rel = abs(float(gm["grad_norm"]) - float(cm["grad_norm"])) / float(cm["grad_norm"])
+        gn_rel = (abs(float(gm["grad_norm"]) - float(cm["grad_norm"]))
+                  / float(cm["grad_norm"]))
         mv = 0.0
         for a, b in zip(tree_leaves([gst["m"], gst["v"]]),
                         tree_leaves([cst["m"], cst["v"]]), strict=True):
@@ -3271,10 +3299,12 @@ def train_f32_check() -> dict:
             f"{mv:.2e} of the leaf max (tol 1e-4), params max diff {p_worst:.3g} (lr "
             f"{lr:g}); card {gpu_s:.2f} s, CPU {cpu_s:.2f} s")
         if not (loss_rel <= 1e-5 and gn_rel <= 1e-4 and mv <= 1e-4):
-            raise AssertionError(f"{name}: the card's float32 step differs from the CPU's")
+            raise AssertionError(f"{name}: the card's float32 step differs from "
+                                 "the CPU's")
         out[name] = {"layers": cfg.num_layers, "loss": float(gm["loss"]),
                      "loss_cpu": float(cm["loss"]), "loss_rel": loss_rel,
-                     "grad_norm_rel": gn_rel, "moments_rel": mv, "params_max_diff": p_worst,
+                     "grad_norm_rel": gn_rel, "moments_rel": mv,
+                     "params_max_diff": p_worst,
                      "card_s": gpu_s, "cpu_s": cpu_s}
         del cpu, gpu, cst, gst
         gc.collect()
@@ -3291,7 +3321,8 @@ def train_restart() -> dict:
     B, T = TRAIN_BATCH
 
     def trainer(d, every):
-        return Trainer(cfg, TrainerConfig(seq_len=T, global_batch=B, checkpoint_every=every,
+        return Trainer(cfg, TrainerConfig(seq_len=T, global_batch=B,
+                                          checkpoint_every=every,
                                           checkpoint_dir=os.path.join(CKPT_DIR, d),
                                           adamw=TRAIN_ADAMW), device=DEV)
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
@@ -3308,7 +3339,8 @@ def train_restart() -> dict:
         raise AssertionError(f"the restarted trainer ended at step {t3.step}")
     worst = max(abs(a - b) / abs(b) for a, b in zip(got, ref[first:]))
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
-    log(f"[train] restart drill ({cfg.num_layers} layers, {cfg.compute_dtype}, {B} x {T}): "
+    log(f"[train] restart drill ({cfg.num_layers} layers, {cfg.compute_dtype}, "
+        f"{B} x {T}): "
         f"{straight} straight vs {first} + restart + {straight - first}: largest "
         f"relative loss difference {worst:.3g} (tol {TRAIN_RTOL:g}), {wall:.1f} s")
     if not worst <= TRAIN_RTOL:
@@ -3346,7 +3378,8 @@ MESH_TRAIN_STEPS = (4, 4)  # before the re-mesh, after it
 MESH_CKPT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                              "chip_smoke_mesh_ckpt")
 DRYRUN_CELLS = (("qwen3-1.7b", "train_4k"), ("qwen3-1.7b", "decode_32k"),
-                ("granite-moe-3b-a800m", "train_4k"), ("recurrentgemma-9b", "prefill_32k"))
+                ("granite-moe-3b-a800m", "train_4k"),
+                ("recurrentgemma-9b", "prefill_32k"))
 DRYRUN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                           "chip_smoke_dryrun")
 DRYRUN_TIMEOUT_S = 900
@@ -3360,7 +3393,8 @@ def mesh_registry(mesh):
     reg.register(bind_sharding(Platform("client", "us-east", kind="edge",
                                         native_prefetch=True, device="cpu"), mesh=mesh))
     reg.register(bind_sharding(Platform("prefill-pod", "us-east", native_prefetch=True,
-                                        device=str(DEV)), mesh=mesh, workload="prefill"))
+                                        device=str(DEV)), mesh=mesh,
+                               workload="prefill"))
     reg.register(bind_sharding(Platform("decode-pod", "us-west", native_prefetch=True,
                                         device=str(DEV)), mesh=mesh, workload="decode"))
     if reg.get("client").mesh is not None or any(
@@ -3408,7 +3442,8 @@ def mesh_ab(cfg, params, dparams, mesh, prompt) -> dict:
     med = {k: {w: statistics.median(v) for w, v in d.items()} for k, d in walls.items()}
     return {"tokens": toks, "max_abs_diff": diff, "max_abs_logit": scale,
             "walls_s": walls, "median_s": med,
-            "ratio": {w: med["mesh"][w] / med["plain"][w] for w in ("prefill", "decode")}}
+            "ratio": {w: med["mesh"][w] / med["plain"][w]
+                      for w in ("prefill", "decode")}}
 
 
 def phase_mesh_serving(cfg, params, prompts, requests, batching) -> dict:
@@ -3458,9 +3493,11 @@ def phase_mesh_serving(cfg, params, prompts, requests, batching) -> dict:
         f"{total} over passes {passes.n}; prefill + {MESH_AB_DECODE} decode steps in "
         f"turns: logits max_abs_diff {ab['max_abs_diff']:.4g} (gate {tol:.4g}), tokens "
         f"equal; prefill wall {ab['median_s']['mesh']['prefill'] * 1e3:.2f} vs "
-        f"{ab['median_s']['plain']['prefill'] * 1e3:.2f} ms (x{ab['ratio']['prefill']:.3f}), "
+        f"{ab['median_s']['plain']['prefill'] * 1e3:.2f} ms "
+        f"(x{ab['ratio']['prefill']:.3f}), "
         f"decode step {ab['median_s']['mesh']['decode'] * 1e3:.2f} vs "
-        f"{ab['median_s']['plain']['decode'] * 1e3:.2f} ms (x{ab['ratio']['decode']:.3f}); "
+        f"{ab['median_s']['plain']['decode'] * 1e3:.2f} ms "
+        f"(x{ab['ratio']['decode']:.3f}); "
         f"{res['wall_s']:.1f} s")
     return res
 
@@ -3530,7 +3567,8 @@ def phase_mesh_train(losses13) -> dict:
         + f" equal phase 13's first {len(losses)} (largest rel diff "
         f"{res['max_rel_diff']:.3g}, rtol {TRAIN_RTOL:g}); step wall median "
         f"{res['step_median_s'] * 1e3:.2f} ms (phase 13's (a): see [train]); peak "
-        f"{peak / 1e9:.2f} GB; two final checkpoints, snapshot {ck['blocked_s']:.2f} s, "
+        f"{peak / 1e9:.2f} GB; two final checkpoints, snapshot "
+        f"{ck['blocked_s']:.2f} s, "
         f"write {ck['save_s']:.2f} s; {wall:.1f} s")
     return res
 
@@ -3544,7 +3582,8 @@ def start_dryrun():
     take memory that llava-next-34b's checks need."""
     shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
     here = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, PYTHONPATH=os.path.join(here, "src"), CUDA_VISIBLE_DEVICES="")
+    env = dict(os.environ, PYTHONPATH=os.path.join(here, "src"),
+               CUDA_VISIBLE_DEVICES="")
     return subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--cells",
          ",".join(f"{a}:{s}" for a, s in DRYRUN_CELLS), "--both-meshes",
@@ -3587,10 +3626,45 @@ def phase_dryrun(proc) -> dict:
         raise AssertionError(f"{len(cells)} dry-run cells written, "
                              f"{2 * len(DRYRUN_CELLS)} run")
     walls = [c["compile_s"] for c in cells.values()]
-    log(f"[mesh] (c) {len(cells)} cells on the 256- and 512-GPU fake meshes, invariants "
+    log(f"[mesh] (c) {len(cells)} cells on the 256- and 512-GPU fake meshes, "
+        "invariants "
         f"held; wall per cell {min(walls):.1f}-{max(walls):.1f} s (sum "
         f"{sum(walls):.1f} s; waited {waited:.1f} s at the end)")
-    return {"cells": cells, "wall_per_cell_s": walls, "waited_s": waited}
+    return {"cells": cells, "wall_per_cell_s": walls, "waited_s": waited,
+            "roofline": phase_roofline()}
+
+
+FAULT5_CELL = "recurrentgemma-9b|prefill_32k|multipod_2x32x8|"
+
+
+def phase_roofline() -> dict:
+    """Phase 14 (c), reported: launch/roofline.py over the dry-run's cells
+    (the analytic memory term, the bottleneck chosen again, the flags), the
+    table and the bottlenecks' split, the baseline as measured here, and
+    ``--check`` against experiments/baselines/roofline_baselines_torch.json
+    (rtol 5%). The multi-pod prefill_32k cell must be flagged as
+    replicating its batch (fault 5)."""
+    import contextlib
+    import io
+    from repro_torch.launch import roofline as RF
+    rows = RF.load(DRYRUN_DIR)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        RF.report(rows)
+        rc = RF.check(rows, RF.BASELINE_PATH)
+    for ln in out.getvalue().splitlines():
+        log(f"[mesh] (c) roofline {ln}")
+    measured = {RF.cell_key(r): RF.summarize(r) for r in rows}
+    log("[mesh] (c) roofline baseline as measured: "
+        + json.dumps(measured, sort_keys=True))
+    flags = {RF.cell_key(r): r["flags"] for r in rows if r["flags"]}
+    if "replicated-batch" not in flags.get(FAULT5_CELL, []):
+        raise AssertionError(f"{FAULT5_CELL} is not flagged as replicated: {flags}")
+    if rc != 0:
+        raise AssertionError("the roofline --check against the committed "
+                             "baseline failed (the lines above)")
+    return {"split": RF.split(rows), "split_counted": RF.split(
+        rows, "bottleneck_counted"), "flags": flags, "cells": measured}
 
 
 def phase_mesh_only() -> dict:
@@ -3623,12 +3697,211 @@ def phase_mesh_only() -> dict:
             proc.kill()
 
 
+# ---------------------------------------------------------------------------
+# phase 15: streamed federated serving
+# ---------------------------------------------------------------------------
+STREAM_ARCH = "qwen3-1.7b"
+STREAM_CHUNKS = 8
+STREAM_STAGING = "us-central"  # setting (a)'s staging payload_region
+STREAM_P2P_BYTES = 1e6  # setting (b): payload edges up to 1 MB go peer to peer
+STREAM_PREFETCH_BYTES = 64 * 2**20  # (c): a float32 data dependency of 64 MiB
+WRAPPER_CALLS = 200
+WRAPPER_BAR_S = 1e-3  # paper §4.1, tests/test_choreography.py
+
+
+def stream_registry():
+    """``serving_registry()`` with a decode pod that takes no direct calls
+    (a public cloud, ``allows_sync=False``): the prefill -> decode payload
+    edge then crosses the data plane (streamed through the store or peer to
+    peer), where the stock topology hands it over in place."""
+    reg = serving_registry()
+    reg.register(replace(reg.get("decode-pod"), allows_sync=False))
+    return reg
+
+
+def first_byte_s(net, hops, nbytes, chunks) -> float:
+    """Modeled seconds until an edge's first chunk has crossed every hop of
+    ``hops`` (region pairs): each hop's fixed term and one chunk's share of
+    its bandwidth term (core/store.py's ``_chunk_dts``)."""
+    out = 0.0
+    for a, b in hops:
+        base = net.transfer_s(a, b, 0)
+        out += base + (net.transfer_s(a, b, nbytes) - base) / chunks
+    return out
+
+
+def stream_setting(cfg, params, prompts, want, name, stream, payload_region):
+    """The federated workflow (phase 4's prompts and handlers) on
+    ``stream_registry()`` with ``stream`` and ``payload_region``: each
+    request's tokens equal ``want``'s; each request's decode stream_wait_s,
+    the payload edge's modeled first byte, the store's modeled seconds
+    (the KV cache's put and get, and the edge where it crosses the store)
+    and the wall."""
+    from repro_torch.core.store import _sizeof
+    rows = []
+    with Deployment(stream_registry(), stream=stream,
+                    payload_region=payload_region) as dep:
+        deploy_serving(dep, cfg, params)
+        net = dep.store.network
+        for a, b in (("us-east", STREAM_STAGING), (STREAM_STAGING, "us-west")):
+            net.set_link(a, b, 0.02, 200e6)
+        for i, prompt in enumerate(prompts):
+            s0 = dep.store.stats_snapshot()
+            e0 = dict(dep.stats)
+            r = dep.run(SERVE_WF, prompt)
+            s1 = dep.store.stats_snapshot()
+            check_tokens(r.outputs, cfg.vocab_size, f"{name} request {i}")
+            if r.outputs != want[i]:
+                raise AssertionError(f"{name} request {i}: tokens {r.outputs} != "
+                                     f"phase 4's {want[i]}")
+            nbytes = _sizeof({"first_tok": 0, "kv_key": f"kv/{i}", "pos": 0})
+            p2p = dep.stats["p2p_edges"] - e0["p2p_edges"]
+            hops = ([("us-east", "us-west")] if p2p else
+                    [("us-east", payload_region), (payload_region, "us-west")])
+            row = {"prompt": len(prompt), "tokens": r.outputs, "wall_s": r.total_s,
+                   "stream_wait_s": r.timeline["decode"]["stream_wait_s"],
+                   "first_byte_s": first_byte_s(net, hops, nbytes,
+                                                1 if p2p else stream.chunks),
+                   "store_modeled_s": (s1["modeled_put_s"] - s0["modeled_put_s"]
+                                       + s1["modeled_get_s"] - s0["modeled_get_s"]),
+                   "edge_modeled_s": (net.transfer_s("us-east", "us-west", nbytes)
+                                      if p2p else None)}
+            rows.append(row)
+            log(f"[stream] {name} request {i} ({'cold' if i == 0 else 'warm'}) "
+                f"prompt {len(prompt)}: wall {r.total_s:.4f} s, stream_wait "
+                f"{row['stream_wait_s'] * 1e3:.3f} ms, edge first byte (modeled) "
+                f"{row['first_byte_s'] * 1e3:.3f} ms, store modeled "
+                f"{row['store_modeled_s']:.4f} s, tokens equal phase 4's")
+        rep = dep.report()
+        wrappers = {f"{n}@{p}": fn.wrapper.overhead_s / fn.wrapper.calls
+                    for (n, p), fn in dep._functions.items() if fn.wrapper.calls}
+    eng = rep["engine"]
+    return {"requests": rows, "engine": {k: eng[k] for k in (
+        "buffered_edges", "streamed_edges", "p2p_edges", "pokes")},
+        "compile": rep["compile"], "wrapper_overhead_s": wrappers}
+
+
+def stream_prefetch() -> dict:
+    """(c): a 64 MiB float32 tensor in the store (us-east), pre-fetched to
+    the card in us-west through ``Prefetcher(stream=StreamConfig(chunks=8))``:
+    the chunked fetch, then the pinned side-stream copy and its event. It
+    lands on the card bit for bit, counted as streamed."""
+    n = STREAM_PREFETCH_BYTES // 4
+    host = torch.from_numpy(np.random.default_rng(21).standard_normal(
+        n, dtype=np.float32))
+    store = ObjectStore()
+    store.network.set_link("us-east", "us-west", 0.02, 200e6)
+    store.put("blob/0", host, region="us-east")
+    pf = Prefetcher(store, stream=StreamConfig(chunks=STREAM_CHUNKS))
+    try:
+        sync()
+        t0 = time.perf_counter()
+        out, exposed, modeled = pf.join(
+            pf.start([DataRef("blob/0", "us-east")], "us-west", device=DEV))
+        joined = time.perf_counter() - t0
+        sync()
+        wall = time.perf_counter() - t0
+    finally:
+        pf.shutdown()
+    got = out["blob/0"]
+    stats = pf.stats_snapshot()
+    same = got.device == DEV and torch.equal(got.view(torch.int32).cpu(),
+                                             host.view(torch.int32))
+    if not same or stats["streamed"] != 1:
+        raise AssertionError(f"streamed prefetch: on {got.device}, bit-exact "
+                             f"{same}, stats {stats}")
+    res = {"bytes": host.numel() * 4, "wall_s": wall, "joined_s": joined,
+           "exposed_s": exposed,
+           "modeled_s": modeled, "first_byte_s": stats["first_byte_s"],
+           "streamed": stats["streamed"]}
+    log(f"[stream] (c) {res['bytes'] / 2**20:.0f} MiB streamed prefetch in "
+        f"{STREAM_CHUNKS} chunks onto {DEV}: bit-exact; wall {wall:.4f} s (joined "
+        f"after {joined:.4f} s, the join's exposed wait {exposed:.4f} s), "
+        f"modeled {modeled:.4f} s (first byte {res['first_byte_s']:.4f} s)")
+    return res
+
+
+def wrapper_overhead() -> dict:
+    """The platform wrapper's own seconds a call on a CUDA platform (it
+    enters ``torch.cuda.device``) and on a CPU one, WRAPPER_CALLS calls of
+    a no-op each, held to WRAPPER_BAR_S."""
+    from repro_torch.core.platform import PlatformWrapper
+    out = {}
+    for dev in (str(DEV), "cpu"):
+        w = PlatformWrapper(Platform("p", "us-east", device=dev), lambda p, d: p)
+        for _ in range(WRAPPER_CALLS):
+            w(1, {})
+        out[dev] = w.overhead_s / w.calls
+        if not out[dev] < WRAPPER_BAR_S:
+            raise AssertionError(f"wrapper overhead {out[dev]} s a call on {dev}")
+    return out
+
+
+def phase_stream(cfg, params, prompts, requests) -> dict:
+    """Phase 15: qwen3-1.7b (use_pallas) served through the federated
+    workflow with the streaming data plane, on phase 4's weights and
+    prompts, every kernel counter at 0 just before and read just after:
+    (a) StreamConfig(chunks=8) with a staging payload_region, so the
+    prefill -> decode payload edge streams (the decode fires on its first
+    chunk); (b) a p2p threshold that sends that edge peer to peer. Every
+    request's tokens equal phase 4's; streamed_edges > 0 in (a), p2p_edges
+    > 0 in (b); exact launches (flash_attention per prefill, rmsnorm per
+    norm per pass). Then (c) the 64 MiB streamed prefetch onto the card and
+    the wrapper's overhead on a CUDA and a CPU platform."""
+    t_phase = time.perf_counter()
+    want = [r["tokens"] for r in requests]
+    per_prefill = launches_per_prefill(cfg)
+    for k in MODEL_KERNELS.values():
+        k.launches = 0
+    with counting_passes() as passes:
+        a = stream_setting(cfg, params, prompts, want, "(a) streamed",
+                           StreamConfig(chunks=STREAM_CHUNKS), STREAM_STAGING)
+        b = stream_setting(cfg, params, prompts, want, "(b) p2p",
+                           StreamConfig(chunks=STREAM_CHUNKS,
+                                        p2p_threshold_bytes=STREAM_P2P_BYTES), None)
+        launches = launch_counts()
+    check_launches(f"{cfg.name} streamed", per_prefill, launches, launches, passes.n,
+                   dict(passes.n), 2 * len(prompts), 0)
+    if not a["engine"]["streamed_edges"] > 0 or a["engine"]["p2p_edges"]:
+        raise AssertionError(f"(a) did not stream its payload edges: {a['engine']}")
+    if not b["engine"]["p2p_edges"] > 0 or b["engine"]["streamed_edges"]:
+        raise AssertionError(f"(b) did not send its payload edges P2P: {b['engine']}")
+    for s in (a, b):
+        if s["compile"]["prewarms"] != 1 or s["compile"]["misses"] != 0:
+            raise AssertionError(f"decode was not pre-warmed by the poke: "
+                                 f"{s['compile']}")
+    res = {"streamed": a, "p2p": b, "prefetch": stream_prefetch(),
+           "wrapper_overhead_s": wrapper_overhead(), "launches": launches,
+           "passes": passes.n, "per_prefill": per_prefill}
+    res["wall_s"] = time.perf_counter() - t_phase
+    log(f"[stream] {cfg.name}: (a) streamed_edges {a['engine']['streamed_edges']}, "
+        f"(b) p2p_edges {b['engine']['p2p_edges']}, every request's tokens equal "
+        f"phase 4's; launches {launches} over passes {passes.n}; wrapper overhead "
+        + ", ".join(f"{d} {v * 1e6:.2f} us" for d, v in
+                    res["wrapper_overhead_s"].items())
+        + f" a call; {res['wall_s']:.1f} s")
+    return res
+
+
+def phase_stream_only() -> dict:
+    """``--only stream``: phase 4's federated requests of qwen3-1.7b (the
+    unstreamed tokens), then phase 15 on the same weights."""
+    cfg = get_config(STREAM_ARCH).replace(use_pallas=True)
+    params, _ = make_params(cfg)
+    prompts = serve_prompts(cfg)
+    res = phase_stream(cfg, params, prompts, phase_federated(cfg, params, prompts))
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
 ONLY_PHASES = {"kernels": lambda: phase_kernels(), "ssd_scan": lambda: phase_ssd_scan(),
                "rglru_scan": lambda: phase_rglru_scan(),
-               "rmsnorm": lambda: phase_rmsnorm(), "cold_scan": lambda: phase_cold_scan(),
+               "rmsnorm": lambda: phase_rmsnorm(),
+               "cold_scan": lambda: phase_cold_scan(),
                "tile_cost": lambda: phase_tile_cost(), "obs": phase_obs_only,
                "jobs": phase_jobs_only, "train": lambda: phase_train(),
-               "mesh": phase_mesh_only}
+               "mesh": phase_mesh_only, "stream": phase_stream_only}
 
 
 def main():
@@ -3705,6 +3978,7 @@ def main_phases(smi, ptxas, dryrun_proc, t_run, walls, timed):
     mesh_train = timed("mesh (b)", lambda: phase_mesh_train(train["full"]["losses"]))
     dryrun = timed("mesh (c) wait", lambda: phase_dryrun(dryrun_proc))
     mesh_served = next(m for m in served if m["arch"] == MESH_ARCH)["mesh"]
+    stream_served = next(m for m in served if m["arch"] == STREAM_ARCH)["stream"]
 
     def model_launches(name):
         return sum(m["launches"][name] for m in served)
@@ -3713,13 +3987,16 @@ def main_phases(smi, ptxas, dryrun_proc, t_run, walls, timed):
         """Launches by main path: serving and batching of the served models,
         the traced serving (11 b) and the jobs phase (12) of qwen3-1.7b,
         training (13 a: none, the jnp path), the no_grad forward_train
-        of 13 (d), and phase 14's meshed serving (a) and training (b)."""
+        of 13 (d), phase 14's meshed serving (a) and training (b), and
+        phase 15's streamed serving."""
         return {"serving": model_launches(name),
                 "obs": obs_served["obs"]["launches"][name],
                 "jobs": obs_served["jobs"]["launches"][name],
                 "train": train["full"]["launches"][name],
-                "train_forward_no_grad": train["full"]["forward_kernels"]["launches"][name],
+                "train_forward_no_grad":
+                    train["full"]["forward_kernels"]["launches"][name],
                 "mesh_serving": mesh_served["launches"][name],
+                "stream": stream_served["launches"][name],
                 "mesh_train": mesh_train["launches"][name]}
 
     cold_paths = {"sim": sim_launches, "adapt": adapt_launches,
@@ -3811,7 +4088,9 @@ def main_phases(smi, ptxas, dryrun_proc, t_run, walls, timed):
     }]
     for m in served:
         log(json.dumps({"serving": {k: v for k, v in m.items()
-                                    if k not in ("obs", "profiler", "jobs", "mesh")}}))
+                                    if k not in ("obs", "profiler", "jobs", "mesh",
+                                                 "stream")}}))
+    log(json.dumps({"stream": stream_served}, default=str))
     log(json.dumps({"mesh": {"serving": mesh_served, "train": mesh_train,
                              "dryrun": dryrun}}, default=str))
     log(json.dumps({"sim": sim, "adapt": adapt, "cold_scan": cs}))

@@ -25,8 +25,8 @@ redeploy; this package closes the loop that makes recomposition *online*:
               latency distributions (common random numbers, quantile
               gate), not point costs
 
-The JAX package's benchmarks/adapt_bench.py degrades one platform 5x mid-run and shows the
-adaptive deployment recovering most of the lost end-to-end latency.
+The JAX package's benchmarks/adapt_bench.py degrades one platform 5x mid-run and
+shows the adaptive deployment recovering most of the lost end-to-end latency.
 """
 
 from repro_torch.adapt.telemetry import TelemetryHub, attach  # noqa: F401

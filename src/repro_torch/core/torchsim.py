@@ -366,7 +366,8 @@ def _sweep(
                     if use_stream:
                         tr_last = tr_last * tr_sc
                 arrival = end_all[u] + tr
-                payload = arrival if payload is None else torch.maximum(payload, arrival)
+                payload = (arrival if payload is None
+                           else torch.maximum(payload, arrival))
                 if use_stream:
                     arrival = end_all[u] + tr_last
                     payload_last = (

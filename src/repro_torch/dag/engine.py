@@ -530,7 +530,15 @@ class DagDeployment:
                     nbytes = _sizeof(value)
                     home = self.payload_region or dst_plat.region
                     if self._p2p_eligible(src, dst, nbytes):
-                        # direct P2P path: one src->dst hop, no store
+                        # direct P2P path: one src->dst hop, no store. The
+                        # payload is handed over by reference, and a CUDA
+                        # tensor in it needs no event: both platform
+                        # threads launch on the device's default stream (a
+                        # thread's current stream is the default one unless
+                        # a handler sets its own), so the successor's
+                        # kernels queue behind the ones that wrote it. A
+                        # handler that computes on a stream of its own
+                        # synchronises it before it returns.
                         p2p_dt = self.registry.network.transfer_s(
                             src_plat.region, dst_plat.region, nbytes
                         )

@@ -32,6 +32,7 @@ MULTI_POD = ((2, 32, 8), ("pod", "data", "model"))
 # H100 SXM5 constants for the roofline terms (per GPU).
 PEAK_FLOPS_BF16 = 989e12  # FLOP/s, dense bf16 (NVIDIA H100 SXM5 datasheet)
 HBM_BW = 3.35e12  # B/s, HBM3 (NVIDIA H100 SXM5 datasheet)
+HBM_BYTES = 80e9  # B, HBM3 capacity (NVIDIA H100 SXM5 datasheet: 80 GB)
 NVLINK_BW = 450e9  # B/s per direction per GPU, NVLink 4 (H100 SXM5 datasheet)
 IB_BW = 50e9  # B/s per GPU: one ConnectX-7 400 Gb/s NDR port per GPU
 #               (DGX H100 user guide)

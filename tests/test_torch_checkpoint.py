@@ -31,7 +31,8 @@ def tree(seed=0):
     g = torch.Generator().manual_seed(seed)
     return {"params": {"w": torch.randn((8, 8), generator=g),
                        "b": torch.zeros(8)},
-            "opt": {"m": torch.ones((8, 8)), "count": torch.tensor(7, dtype=torch.int32)}}
+            "opt": {"m": torch.ones((8, 8)),
+                    "count": torch.tensor(7, dtype=torch.int32)}}
 
 
 def _assert_equal_trees(a, b):
@@ -119,10 +120,12 @@ def test_jax_checkpoint_restores_in_the_port(tmp_path):
                      "h": jnp.asarray(rng.standard_normal(5), jnp.bfloat16)},
           "opt": {"count": jnp.int32(11)}}
     JCheckpointManager(str(tmp_path)).save(4, jt, blocking=True)
-    target = {"params": {"w": torch.zeros(4, 3), "h": torch.zeros(5, dtype=torch.bfloat16)},
+    target = {"params": {"w": torch.zeros(4, 3),
+                         "h": torch.zeros(5, dtype=torch.bfloat16)},
               "opt": {"count": torch.tensor(0, dtype=torch.int32)}}
     got = CheckpointManager(str(tmp_path)).restore(4, target)
-    np.testing.assert_array_equal(got["params"]["w"].numpy(), np.asarray(jt["params"]["w"]))
+    np.testing.assert_array_equal(got["params"]["w"].numpy(),
+                                  np.asarray(jt["params"]["w"]))
     assert got["opt"]["count"].dtype == torch.int32 and int(got["opt"]["count"]) == 11
     assert got["params"]["h"].dtype == torch.bfloat16
     np.testing.assert_array_equal(got["params"]["h"].view(torch.int16).numpy(),
@@ -154,4 +157,5 @@ def test_restore_onto_a_device(tmp_ckpt):
     tmp_ckpt.save(1, t, blocking=True)
     got = tmp_ckpt.restore(1, t, device="cpu")
     assert all(x.device.type == "cpu" for x in tree_leaves(got))
-    assert tmp_ckpt.nbytes(1) > sum(x.numel() * x.element_size() for x in tree_leaves(t))
+    assert tmp_ckpt.nbytes(1) > sum(x.numel() * x.element_size()
+                                    for x in tree_leaves(t))

@@ -391,7 +391,8 @@ def test_cell_model_equal_on_h100_meshes(arch, shape):
         cfg = cell_defaults(treg.get_config(arch), s)
         jcfg = jreg.get_config(arch).replace(**{
             k: getattr(cfg, k) for k in ("remat", "attn_chunk_q", "ce_chunk")})
-        got, want = CellModel(cfg, s, ms, micro), JCellModel(jcfg, JSHAPES[shape], ms, micro)
+        got = CellModel(cfg, s, ms, micro)
+        want = JCellModel(jcfg, JSHAPES[shape], ms, micro)
         for f in ("corrections_dev", "bytes_corrections_dev",
                   "model_flops_analytic_dev"):
             assert getattr(got, f)() == getattr(want, f)(), (f, sizes)

@@ -36,13 +36,15 @@ def test_shard_batch_and_iterator_on_the_cpu():
     cfg = smoke_config("qwen3-1.7b")
     want = SyntheticCorpus(cfg.vocab_size, 16, 3).batch(2, 4)
     got = shard_batch(want, device="cpu")
-    assert all(isinstance(v, torch.Tensor) and v.device.type == "cpu" for v in got.values())
+    assert all(isinstance(v, torch.Tensor) and v.device.type == "cpu"
+               for v in got.values())
     np.testing.assert_array_equal(got["tokens"].numpy(), want["tokens"])
     it = make_train_iterator(cfg, 16, 4, start_step=2, seed=3, device="cpu")
     for step in (2, 3, 4):
         b = next(it)
         np.testing.assert_array_equal(
-            b["labels"].numpy(), SyntheticCorpus(cfg.vocab_size, 16, 3).batch(step, 4)["labels"])
+            b["labels"].numpy(),
+            SyntheticCorpus(cfg.vocab_size, 16, 3).batch(step, 4)["labels"])
 
 
 @pytest.fixture

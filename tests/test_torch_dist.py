@@ -53,7 +53,8 @@ def _params(cfg, inp):
     from repro_torch.models.params import ParamDef
     from repro_torch.models.tree import tree_map_with_path
     return tree_map_with_path(lambda path, d: torch.from_numpy(np.array(inp[path])),
-                              M.param_defs(cfg), is_leaf=lambda x: isinstance(x, ParamDef))
+                              M.param_defs(cfg),
+                              is_leaf=lambda x: isinstance(x, ParamDef))
 
 
 def _serve(cfg, params, mesh, inp, seen):

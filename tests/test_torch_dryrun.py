@@ -25,7 +25,8 @@ from repro.launch.hlo_tools import total_dot_flops as jtotal_dot_flops
 from repro.models import model as JM
 from repro_torch.configs.registry import smoke_config
 from repro_torch.launch.dryrun import price_collectives, wire_bytes
-from repro_torch.launch.hlo_tools import dot_flops_by_module, top_dot_flops, total_dot_flops
+from repro_torch.launch.hlo_tools import (dot_flops_by_module, top_dot_flops,
+                                          total_dot_flops)
 from repro_torch.models import model as M
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.tree import tree_map
@@ -86,7 +87,8 @@ def test_micro_step_dot_flops_match_reference_unrolled(chunk):
     kw = dict(num_layers=2, d_model=64, num_heads=4, num_kv_heads=2, head_dim=16,
               remat="full", scan_layers=False, attn_chunk_q=chunk,
               attn_chunk_unroll=True)
-    jcfg, cfg = jsmoke("qwen3-1.7b").replace(**kw), smoke_config("qwen3-1.7b").replace(**kw)
+    jcfg = jsmoke("qwen3-1.7b").replace(**kw)
+    cfg = smoke_config("qwen3-1.7b").replace(**kw)
     B, T = 2, 256
     batch = {"tokens": np.zeros((B, T), np.int32), "labels": np.zeros((B, T), np.int32)}
     jparams = JM.init_params(jcfg, jax.random.PRNGKey(0))
@@ -121,7 +123,8 @@ from repro_torch.configs.base import ShapeSpec
 from repro_torch.configs.registry import smoke_config
 from repro_torch.launch.dryrun import run_cell
 dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=16)
-mesh = DeviceMesh("cpu", torch.arange(16).reshape(4, 4), mesh_dim_names=("data", "model"))
+mesh = DeviceMesh("cpu", torch.arange(16).reshape(4, 4),
+                  mesh_dim_names=("data", "model"))
 cfg = smoke_config("qwen3-1.7b").replace(num_heads=8, num_kv_heads=4, d_ff=256)
 for shape in (ShapeSpec("t", 64, 8, "train"), ShapeSpec("p", 64, 8, "prefill"),
               ShapeSpec("d", 64, 8, "decode")):
@@ -155,7 +158,8 @@ def test_smoke_cells_on_a_fake_16_rank_mesh(tmp_path):
     assert sorted(cells) == ["d", "p", "t"]
     t = cells["t"]
     assert (t["n_micro"], t["micro_global_batch"]) == (2, 4)
-    assert t["collectives"]["ici_wire_bytes"] > 0 and t["collectives"]["dcn_wire_bytes"] > 0
+    assert t["collectives"]["ici_wire_bytes"] > 0
+    assert t["collectives"]["dcn_wire_bytes"] > 0
     assert t["scan_correction_flops_dev"] == 0.0  # T = 64 <= the 512 chunk
     assert 0.5 < t["flops_per_dev_step"] / t["analytic_flops_dev"] < 2.0
     assert cells["d"]["collectives"]["by_op"]

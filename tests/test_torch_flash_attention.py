@@ -142,7 +142,8 @@ def test_plan_covers_every_reachable_pair_once(T, S, causal, window):
 
 
 @pytest.mark.parametrize("T,S,causal,window",
-                         [c for c in PLAN_CASES if c[0] <= 512 and c != (130, 77, True, 40)])
+                         [c for c in PLAN_CASES
+                          if c[0] <= 512 and c != (130, 77, True, 40)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_tiles_match_ref(T, S, causal, window, dtype):
     """The plain attention cut into the kernel's q and kv tiles, each q tile
@@ -209,11 +210,12 @@ def test_check_rejects_what_the_kernels_do_not_take(case):
     if case == "dtype":
         q, k, v, err = q.half(), k.half(), v.half(), TypeError
     elif case == "head_dim":
-        q, k, v = q[..., :40].contiguous(), k[..., :40].contiguous(), v[..., :40].contiguous()
+        q, k, v = (t[..., :40].contiguous() for t in (q, k, v))
     elif case == "contiguous":
         q = torch.zeros((1, 4, 64, 64), dtype=torch.bfloat16).transpose(1, 2)
     elif case == "aligned":
-        q = torch.zeros(1 * 64 * 4 * 64 + 1, dtype=torch.bfloat16)[1:].view(1, 64, 4, 64)
+        q = torch.zeros(1 * 64 * 4 * 64 + 1,
+                        dtype=torch.bfloat16)[1:].view(1, 64, 4, 64)
     elif case == "window":
         window = 0
     elif case == "gqa":

@@ -146,7 +146,8 @@ def test_kernel_path_takes_the_fused_entry_points():
             adds = len(kinds) * (1 + bool(cfg.d_ff))  # each block's adds: all pending
             assert counts.get("add_rmsnorm_kernel", 0) == adds, arch
             assert counts.get("gated_rmsnorm_kernel", 0) == kinds.count("ssd"), arch
-            assert counts.get("rmsnorm_kernel", 0) == 1 + 2 * attn * bool(cfg.qk_norm), arch
+            want = 1 + 2 * attn * bool(cfg.qk_norm)
+            assert counts.get("rmsnorm_kernel", 0) == want, arch
     finally:
         for n, fn in saved.items():
             setattr(layers, n, fn)

@@ -61,3 +61,36 @@ def test_library_name_tracks_the_source(tmp_path):
     p = build._lib_path("flash_attention", tmp_path)
     assert p.parent == tmp_path and p.name.startswith("libflash_attention-")
     assert p == build._lib_path("flash_attention", tmp_path)
+
+
+# every Python file the port added: ruff's E501 (pyproject.toml's line-length)
+# holds them as it holds the reference's
+ADDED = sorted(set(PORT_FILES + [SMOKE]
+                   + list((ROOT / "tests").glob("test_torch_*.py"))
+                   + list((ROOT / "tools").glob("*.py"))))
+LINE_LENGTH = 88
+
+
+@pytest.mark.parametrize("path", ADDED, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_line_over_the_line_length(path):
+    """No line longer than 88 characters unless it is one word (ruff's E501
+    skips those)."""
+    long = [i for i, line in enumerate(path.read_text().splitlines(), 1)
+            if len(line) > LINE_LENGTH and len(line.split()) > 1]
+    assert not long, f"{path.relative_to(ROOT)}: lines {long} exceed {LINE_LENGTH}"
+
+
+def test_wheel_carries_the_cuda_sources():
+    """pyproject.toml's package data covers every source the build reads,
+    and the ``test`` extra pulls in torch."""
+    import fnmatch
+    import tomllib
+    conf = tomllib.loads((ROOT / "pyproject.toml").read_text())
+    pats = conf["tool"]["setuptools"]["package-data"]["repro_torch"]
+    pkg = ROOT / "src" / "repro_torch"
+    for f in (pkg / "kernels" / "csrc").iterdir():
+        rel = str(f.relative_to(pkg))
+        assert any(fnmatch.fnmatch(rel, p) for p in pats), rel
+    extras = conf["project"]["optional-dependencies"]
+    assert "repro[torch]" in extras["test"]
+    assert any(d.startswith("torch>=") for d in extras["torch"])

@@ -129,7 +129,8 @@ def test_engine_trace_attribution_matches_wall_clock(traced_dag):
         ref.run(diamond_spec(D=jdag), 1)
     ref_trace = ref_tracer.last()
     assert set(ref_trace.node_spans()) == set(nodes)
-    assert sorted(s.kind for s in ref_trace.spans) == sorted(s.kind for s in trace.spans)
+    assert sorted(s.kind for s in ref_trace.spans) == sorted(
+        s.kind for s in trace.spans)
     ref_cp = RO.extract_critical_path(ref_trace)
     assert (ref_cp.nodes[0], ref_cp.nodes[-1]) == (cp.nodes[0], cp.nodes[-1])
 

@@ -86,7 +86,8 @@ def test_update_is_in_place_and_keeps_dtypes():
     params = {"w": torch.ones(4, 4, dtype=torch.bfloat16), "b": torch.zeros(4)}
     state = opt.init(params)
     w, m = params["w"], state["m"]["w"]
-    p2, s2, _ = opt.update(params, state, {"w": torch.ones(4, 4), "b": torch.ones(4)}, 0)
+    grads = {"w": torch.ones(4, 4), "b": torch.ones(4)}
+    p2, s2, _ = opt.update(params, state, grads, 0)
     assert p2["w"] is w and s2["m"]["w"] is m
     assert p2["w"].dtype == torch.bfloat16 and s2["m"]["w"].dtype == torch.float32
     assert float(p2["w"].float().max()) < 1
@@ -130,7 +131,8 @@ def test_cosine_schedule_shape():
 @settings(max_examples=30, deadline=None)
 def test_quantize_roundtrip_error_bounded(seed):
     rng = np.random.default_rng(seed)
-    x = torch.from_numpy((rng.normal(size=64) * rng.uniform(0.1, 100)).astype(np.float32))
+    x = torch.from_numpy(
+        (rng.normal(size=64) * rng.uniform(0.1, 100)).astype(np.float32))
     q, scale = C.quantize_int8(x)
     err = torch.abs(C.dequantize_int8(q, scale) - x)
     assert float(torch.max(err)) <= float(scale) / 2 + 1e-6

@@ -70,7 +70,8 @@ def one_rank_group():
 
 # -- tests/test_sharding.py, re-pointed -----------------------------------------
 def test_divisibility_fallback():
-    assert both((3072, 24, 128), ("embed", "heads", "head_dim")) == JP("data", None, None)
+    assert both((3072, 24, 128), ("embed", "heads", "head_dim")) == JP(
+        "data", None, None)
     assert both((5120, 64, 128), ("embed", "heads", "head_dim")) == JP("data", "model",
                                                                        None)
 
@@ -196,7 +197,8 @@ def test_rules_replace_lever():
 
 
 # -- the port's own ---------------------------------------------------------------
-@pytest.mark.parametrize("mesh", [MESH, MESH_MP, MESH_A], ids=["pod", "multipod", "small"])
+@pytest.mark.parametrize("mesh", [MESH, MESH_MP, MESH_A],
+                         ids=["pod", "multipod", "small"])
 def test_validate_rules_and_describe_equal_reference(mesh):
     for kind in ("train", "decode"):
         mp = "pod" in mesh.shape
@@ -246,7 +248,8 @@ def test_bind_sharding_picks_multi_pod_rules_on_a_pod_device_mesh():
     assert cloud.rules.name == jcloud.rules.name == "decode_mp"
     assert cloud.rules.lookup("batch") == ("pod", "data")
     single = bind_sharding(Platform("s", "eu", device="cpu"),
-                           mesh=NamedMesh(("data", "model"), (16, 16)), workload="train")
+                           mesh=NamedMesh(("data", "model"), (16, 16)),
+                           workload="train")
     assert single.rules.name == "train"
     edge = bind_sharding(Platform("e", "eu", kind="edge", device="cpu"), mesh=mesh)
     assert edge.mesh is None and edge.rules.name == "replicated"
@@ -284,6 +287,30 @@ def test_input_specs_carry_mesh_and_placements(one_rank_group):
     assert plain["tokens"].mesh is None and plain["tokens"].placements is None
 
 
+def test_multi_pod_prefill_32k_batch_replicates_on_the_h100_mesh():
+    """Fault 5, a deliberate difference: on the H100 multi-pod mesh (pod=2,
+    data=32, model=8) the 32 sequences of prefill_32k do not divide over
+    pod x data = 64, and the all-or-nothing rule replicates the batch (the
+    reference's (2, 16, 16) mesh splits it 32 ways); on the single-pod H100
+    mesh they split over data. The rule is the reference's."""
+    from repro_torch.launch.mesh import MULTI_POD, SINGLE_POD
+    cfg = get_config("recurrentgemma-9b")
+    defs = M.batch_defs(cfg, SHAPES["prefill_32k"])
+    assert SHAPES["prefill_32k"].global_batch == 32
+    h100_mp = FakeMesh(dict(zip(MULTI_POD[1], MULTI_POD[0])))
+    h100_sp = FakeMesh(dict(zip(SINGLE_POD[1], SINGLE_POD[0])))
+    mp_rules = shd.rules_for("prefill", multi_pod=True)
+    assert M.spec_pspecs(defs, mp_rules, h100_mp) == {"tokens": P(None, None)}
+    assert M.spec_pspecs(defs, shd.rules_for("prefill"), h100_sp) == {
+        "tokens": P("data", None)}
+    # the reference's mesh: the same rule splits the batch over pod x data
+    assert M.spec_pspecs(defs, mp_rules, MESH_MP) == {
+        "tokens": P(("pod", "data"), None)}
+    jrules = jshd.rules_for("prefill", multi_pod=True)
+    assert tuple(jshd.pspec_for((32, 32768), ("batch", "seq"), jrules,
+                                FakeMesh(h100_mp.shape))) == (None, None)
+
+
 def test_abstract_params_are_meta_dtensors(one_rank_group):
     """``abstract_params`` (the dry-run's inputs): meta tensors, and with
     rules and a mesh meta DTensors in the rules' placements; for SpecDefs
@@ -294,10 +321,11 @@ def test_abstract_params_are_meta_dtensors(one_rank_group):
     cfg = get_config("qwen3-1.7b").replace(num_layers=2)
     mesh = make_host_mesh(device="cpu")
     rules = shd.rules_for("train")
-    for leaf in tree_leaves(prm.abstract_params(M.param_defs(cfg), torch.bfloat16, rules,
-                                                mesh)):
+    for leaf in tree_leaves(prm.abstract_params(M.param_defs(cfg), torch.bfloat16,
+                                                rules, mesh)):
         assert isinstance(leaf, DTensor) and leaf.to_local().is_meta
         assert leaf.dtype == torch.bfloat16
     plain = prm.abstract_params(M.batch_defs(cfg, SHAPES["train_4k"]), None)
     assert plain["tokens"].is_meta and plain["tokens"].dtype == torch.int32
-    assert prm.param_pspecs(M.param_defs(cfg), rules, MESH)["embed"] == P("model", "data")
+    assert prm.param_pspecs(M.param_defs(cfg), rules, MESH)["embed"] == P(
+        "model", "data")

@@ -82,7 +82,8 @@ def jax_grads(jcfg, jp, batch):
 
 
 def torch_grads(tcfg, tp, batch):
-    return M.value_and_grad(tcfg, tp, {k: torch.from_numpy(v) for k, v in batch.items()})
+    return M.value_and_grad(tcfg, tp,
+                            {k: torch.from_numpy(v) for k, v in batch.items()})
 
 
 def assert_grads(got, want, rel):

@@ -160,7 +160,8 @@ def test_state_and_grad_acc_defs_match_jax():
                               tree, is_leaf=lambda x: type(x).__name__ == "ParamDef"))]
     pdefs, jdefs = M.param_defs(cfg), JM.param_defs(jcfg)
     assert sig(M.grad_acc_defs(pdefs), True) == sig(JM.grad_acc_defs(jdefs), False)
-    assert sig(AdamW().state_defs(pdefs), True) == sig(JAdamW().state_defs(jdefs), False)
+    assert sig(AdamW().state_defs(pdefs), True) == sig(
+        JAdamW().state_defs(jdefs), False)
 
 
 class _FakeMesh:
@@ -178,7 +179,8 @@ def test_spec_pspecs_of_every_cell_equal_the_reference(arch):
     from repro_torch.dist import sharding as shd
     from repro_torch.models import params as prm
     cfg, jcfg = get_config(arch), jget_config(arch)
-    for shape, mp in (({"data": 32, "model": 8}, False), ({"data": 16, "model": 16}, False),
+    for shape, mp in (({"data": 32, "model": 8}, False),
+                      ({"data": 16, "model": 16}, False),
                       ({"pod": 2, "data": 32, "model": 8}, True)):
         mesh = _FakeMesh(shape)
         for s in japplicable(jcfg):
@@ -188,8 +190,9 @@ def test_spec_pspecs_of_every_cell_equal_the_reference(arch):
                     else M.batch_defs(cfg, SHAPES[s.name]))
             jdefs = (JM.decode_input_defs(jcfg, s) if s.kind == "decode"
                      else JM.batch_defs(jcfg, s))
-            got = [tuple(x) for x in tree_leaves(M.spec_pspecs(defs, rules, mesh),
-                                                 is_leaf=lambda x: isinstance(x, shd.PartitionSpec))]
+            got = [tuple(x) for x in tree_leaves(
+                M.spec_pspecs(defs, rules, mesh),
+                is_leaf=lambda x: isinstance(x, shd.PartitionSpec))]
             want = [tuple(x) for x in jax.tree_util.tree_leaves(
                 JM.spec_pspecs(jdefs, jrules, mesh),
                 is_leaf=lambda x: type(x).__name__ == "PartitionSpec")]

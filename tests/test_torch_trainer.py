@@ -1,7 +1,8 @@
 """The port's fault-tolerant ``Trainer`` (``repro_torch.train``) on the CPU:
 the tests of ``tests/test_trainer.py`` re-pointed (loss falls, a restart
 resumes identically, stragglers are detected, the elastic re-mesh
-continues on a one-rank gloo mesh), ``prewarm`` leaves the state bit for bit as it was, and
+continues on a one-rank gloo mesh), ``prewarm`` leaves the state bit for bit as
+it was, and
 state carried across: the JAX package's Trainer runs 6 steps into a
 directory, the port's Trainer resumes there for 6 more, and its losses
 continue the reference's straight 12-step run.
@@ -10,6 +11,8 @@ Tolerances: a restart within one package rtol 1e-5 (the reference's); the
 carried-across losses rtol 1e-4 (float32, both packages on the CPU, the
 difference after 6 steps of smoke-size training measures 2.1e-7).
 """
+import time
+
 import jax
 import numpy as np
 import pytest
@@ -87,7 +90,32 @@ def test_restart_resumes_identically(cfg, tmp_path, prewarm):
     np.testing.assert_allclose(got, ref, rtol=1e-5)
 
 
-def test_straggler_detection(cfg, tmp_path):
+STEP_FLOOR_S = 0.1  # a device-bound step's host wait (see device_bound_steps)
+
+
+@pytest.fixture
+def device_bound_steps(monkeypatch):
+    """Each train step waits STEP_FLOOR_S before its work, as a host waits
+    for its card. The smoke step alone is ~15 ms of one CPU thread, and its
+    wall follows the share of the CPU that the suite's other workers leave
+    it: under ``-n 6`` a load change within the run moved later steps past
+    3x the EWMA, steps that the EWMA never folds in, so they kept firing
+    ([10, 11, 12, 13]). A fixed wait keeps such a step's wall within the
+    factor; the injected straggler (at least 10x the EWMA) still fires."""
+    from repro_torch.train import trainer as trainer_mod
+    make = trainer_mod.M.make_train_step
+
+    def floored(*a, **k):
+        step = make(*a, **k)
+
+        def run(*args, **kw):
+            time.sleep(STEP_FLOOR_S)
+            return step(*args, **kw)
+        return run
+    monkeypatch.setattr(trainer_mod.M, "make_train_step", floored)
+
+
+def test_straggler_detection(cfg, tmp_path, device_bound_steps):
     tr = trainer(cfg, tcfg(tmp_path, total_steps=14))
     fired = []
     tr.on_straggler = lambda step, dt: fired.append(step)
@@ -126,7 +154,8 @@ def test_prewarm_leaves_the_state_unchanged(cfg, tmp_path):
     tr = trainer(cfg, tcfg(tmp_path)).init_state()
     before = [t.clone() for t in tree_leaves({"p": tr.params, "o": tr.opt_state})]
     versions = [t._version for t in tree_leaves({"p": tr.params, "o": tr.opt_state})]
-    example = {"tokens": np.zeros((4, 32), np.int32), "labels": np.zeros((4, 32), np.int32)}
+    example = {"tokens": np.zeros((4, 32), np.int32),
+               "labels": np.zeros((4, 32), np.int32)}
     tr.prewarm(example)
     after = tree_leaves({"p": tr.params, "o": tr.opt_state})
     assert all(torch.equal(a, b) for a, b in zip(after, before, strict=True))
@@ -155,7 +184,8 @@ def test_state_carried_across_from_the_reference(tmp_path):
     straight = JTrainer(jcfg, JTrainerConfig(**jt, checkpoint_dir=str(tmp_path / "a")))
     ref = [m["loss"] for m in straight.run(12)]
     JTrainer(jcfg, JTrainerConfig(**jt, checkpoint_dir=str(tmp_path / "b"))).run(6)
-    port = trainer(smoke_config("qwen3-1.7b"), tcfg(tmp_path, checkpoint_dir=str(tmp_path / "b")))
+    port = trainer(smoke_config("qwen3-1.7b"),
+                   tcfg(tmp_path, checkpoint_dir=str(tmp_path / "b")))
     got = [m["loss"] for m in port.run(6)]
     assert port.step == 12
     np.testing.assert_allclose(got, ref[6:], rtol=1e-4)

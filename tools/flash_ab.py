@@ -5,8 +5,8 @@
 ROOT_A and ROOT_B are checkouts of this repo (for example a parent commit
 unpacked with ``git archive`` into a directory that ``.gitignore`` lists,
 and the working tree ``.``). Each runs in its own process, in the turns
-A, B, B, A (or ``--turns``), with ``ROOT/src`` first on the path, so each builds and loads
-its own CUDA kernels (into ``ROOT/build/torch_kernels``). A turn measures,
+A, B, B, A (or ``--turns``), with ``ROOT/src`` first on the path, so each builds
+and loads its own CUDA kernels (into ``ROOT/build/torch_kernels``). A turn measures,
 on the card:
 
 - the flash_attention wrapper at the three served prefill shapes (qwen3,
@@ -133,7 +133,7 @@ def worker(root: str, device: str) -> dict:
         sync()
         res = {"host_us": host_us}
         if not cpu:
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             torch.cuda._sleep(100_000_000)  # queue the calls behind ~50 ms
             a.record()
             for _ in range(100):
@@ -230,7 +230,8 @@ def main():
                 summary[key] = statistics.median(r[key] for r in rs)
         for metric in ("prefill_ms", "flash_host_ms", "no_flash_prefill_ms"):
             for key in rs[0][metric]:
-                summary[f"{metric} {key}"] = statistics.median(r[metric][key] for r in rs)
+                summary[f"{metric} {key}"] = statistics.median(
+                    r[metric][key] for r in rs)
         print(json.dumps({"summary": name, **summary}), flush=True)
 
 

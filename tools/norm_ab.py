@@ -55,7 +55,7 @@ def worker(root: str, device: str) -> dict:
         times = []
         for _ in range(10):
             torch.cuda._sleep(20_000_000)
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             a.record()
             for _ in range(100):
                 fn()
