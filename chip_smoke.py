@@ -1134,7 +1134,8 @@ class InFlight:
                                      f"after {timeout_s} s")
 
 
-def deploy_serving(dep, cfg, params, seen=None) -> InFlight:
+def deploy_serving(dep, cfg, params, seen=None, kv_in_payload=False,
+                   sent=None) -> InFlight:
     """Deploy the federated workflow's steps on ``dep``: prefill ships its
     caches through the object store (one key a call), decode fetches them
     per call, so two attempts of one decode (a retry, a hedge) never share
@@ -1143,7 +1144,11 @@ def deploy_serving(dep, cfg, params, seen=None) -> InFlight:
     payload; its prefill (or hubert's encode) takes the pre-fetched tensor
     from ``data`` and keeps it in ``seen`` under its key. Every handler
     ends in a device-to-host copy (``greedy``): they return host values, so
-    a traced compute span closes after the device work."""
+    a traced compute span closes after the device work. With
+    ``kv_in_payload`` prefill instead returns the padded caches as card
+    tensors in its payload, their padding kernels possibly still queued,
+    and decode computes on them as it receives them. Prefill appends each
+    payload it returns to ``sent`` where given."""
     dep.store.network.set_link("us-east", "us-west", 0.02, 200e6)
     V = cfg.vocab_size
     keys = itertools.count()
@@ -1173,17 +1178,26 @@ def deploy_serving(dep, cfg, params, seen=None) -> InFlight:
         tok = greedy(logits)
         pos = len(payload) + (cfg.num_patches if "patches" in batch else 0)
         caches = pad_cache(caches, serve_len(cfg), pos, cfg=cfg)
-        key = f"kv/{next(keys)}"
-        dep.store.put(key, tree_map(lambda t: shd.full(t).cpu(), caches),
-                      region="us-east")
-        return {"first_tok": tok, "kv_key": key, "pos": pos}
+        if kv_in_payload:
+            out = {"first_tok": tok, "caches": caches, "pos": pos}
+        else:
+            key = f"kv/{next(keys)}"
+            dep.store.put(key, tree_map(lambda t: shd.full(t).cpu(), caches),
+                          region="us-east")
+            out = {"first_tok": tok, "kv_key": key, "pos": pos}
+        if sent is not None:
+            sent.append(out)
+        return out
 
     def decode_step(token, caches, cur):
         return M.decode_step(cfg, params, token, caches, cur)
 
     def decode_fn(payload, data):
-        host_caches, _ = dep.store.get(payload["kv_key"], "us-west")
-        caches = tree_map(lambda t: t.to(DEV), host_caches)
+        if "caches" in payload:
+            caches = payload["caches"]
+        else:
+            host_caches, _ = dep.store.get(payload["kv_key"], "us-west")
+            caches = tree_map(lambda t: t.to(DEV), host_caches)
         mesh, rules = shd.current_sharding()  # the decode platform's, if any
         if mesh is not None:
             caches = M.distribute_params(caches, cache_defs(cfg, 1, serve_len(cfg)),
@@ -3383,6 +3397,9 @@ DRYRUN_CELLS = (("qwen3-1.7b", "train_4k"), ("qwen3-1.7b", "decode_32k"),
 DRYRUN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                           "chip_smoke_dryrun")
 DRYRUN_TIMEOUT_S = 900
+ROOFLINE_BASELINE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                 "experiments", "baselines",
+                                 "roofline_baselines_torch.json")
 
 
 def mesh_registry(mesh):
@@ -3651,7 +3668,7 @@ def phase_roofline() -> dict:
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         RF.report(rows)
-        rc = RF.check(rows, RF.BASELINE_PATH)
+        rc = RF.check(rows, ROOFLINE_BASELINE)
     for ln in out.getvalue().splitlines():
         log(f"[mesh] (c) roofline {ln}")
     measured = {RF.cell_key(r): RF.summarize(r) for r in rows}
@@ -3704,7 +3721,8 @@ STREAM_ARCH = "qwen3-1.7b"
 STREAM_CHUNKS = 8
 STREAM_STAGING = "us-central"  # setting (a)'s staging payload_region
 STREAM_P2P_BYTES = 1e6  # setting (b): payload edges up to 1 MB go peer to peer
-STREAM_PREFETCH_BYTES = 64 * 2**20  # (c): a float32 data dependency of 64 MiB
+STREAM_P2P_KV_BYTES = 1e9  # setting (c): the 117 MB cache in the payload, P2P
+STREAM_PREFETCH_BYTES = 64 * 2**20  # (d): a float32 data dependency of 64 MiB
 WRAPPER_CALLS = 200
 WRAPPER_BAR_S = 1e-3  # paper §4.1, tests/test_choreography.py
 
@@ -3719,29 +3737,37 @@ def stream_registry():
     return reg
 
 
-def first_byte_s(net, hops, nbytes, chunks) -> float:
-    """Modeled seconds until an edge's first chunk has crossed every hop of
-    ``hops`` (region pairs): each hop's fixed term and one chunk's share of
-    its bandwidth term (core/store.py's ``_chunk_dts``)."""
-    out = 0.0
-    for a, b in hops:
-        base = net.transfer_s(a, b, 0)
-        out += base + (net.transfer_s(a, b, nbytes) - base) / chunks
-    return out
-
-
-def stream_setting(cfg, params, prompts, want, name, stream, payload_region):
-    """The federated workflow (phase 4's prompts and handlers) on
-    ``stream_registry()`` with ``stream`` and ``payload_region``: each
-    request's tokens equal ``want``'s; each request's decode stream_wait_s,
-    the payload edge's modeled first byte, the store's modeled seconds
-    (the KV cache's put and get, and the edge where it crosses the store)
-    and the wall."""
+def edge_modeled_s(dep, payload, p2p) -> tuple:
+    """The bytes of ``payload``, the one prefill returned, and the (first
+    byte, whole) modeled seconds of the prefill -> decode edge carrying it,
+    as the engine prices it: peer to peer, one hop on the network model;
+    streamed, a chunked put to the payload region and a chunked get from
+    it, each hop's chunks from the store's ``_chunk_dts``."""
     from repro_torch.core.store import _sizeof
-    rows = []
+    nbytes = _sizeof(payload)
+    src = dep.registry.get("prefill-pod").region
+    dst = dep.registry.get("decode-pod").region
+    if p2p:
+        dt = dep.registry.network.transfer_s(src, dst, nbytes)
+        return nbytes, dt, dt
+    hops = [dep.store._chunk_dts(a, b, nbytes, dep.stream.chunks)
+            for a, b in ((src, dep.payload_region), (dep.payload_region, dst))]
+    return nbytes, sum(h[0] for h in hops), sum(sum(h) for h in hops)
+
+
+def stream_setting(cfg, params, prompts, want, name, stream, payload_region,
+                   kv_in_payload=False):
+    """The federated workflow (phase 4's prompts and handlers) on
+    ``stream_registry()`` with ``stream`` and ``payload_region``; with
+    ``kv_in_payload`` the caches ride in the payload as card tensors. Each
+    request's tokens equal ``want``'s; each request's decode stream_wait_s,
+    the payload edge's modeled first byte and whole, the store's modeled
+    seconds (the KV cache's put and get where it goes through the store,
+    and the edge where it crosses the store) and the wall."""
+    rows, sent = [], []
     with Deployment(stream_registry(), stream=stream,
                     payload_region=payload_region) as dep:
-        deploy_serving(dep, cfg, params)
+        deploy_serving(dep, cfg, params, kv_in_payload=kv_in_payload, sent=sent)
         net = dep.store.network
         for a, b in (("us-east", STREAM_STAGING), (STREAM_STAGING, "us-west")):
             net.set_link(a, b, 0.02, 200e6)
@@ -3754,24 +3780,21 @@ def stream_setting(cfg, params, prompts, want, name, stream, payload_region):
             if r.outputs != want[i]:
                 raise AssertionError(f"{name} request {i}: tokens {r.outputs} != "
                                      f"phase 4's {want[i]}")
-            nbytes = _sizeof({"first_tok": 0, "kv_key": f"kv/{i}", "pos": 0})
             p2p = dep.stats["p2p_edges"] - e0["p2p_edges"]
-            hops = ([("us-east", "us-west")] if p2p else
-                    [("us-east", payload_region), (payload_region, "us-west")])
+            nbytes, first, whole = edge_modeled_s(dep, sent[-1], p2p)
             row = {"prompt": len(prompt), "tokens": r.outputs, "wall_s": r.total_s,
+                   "payload_bytes": nbytes,
                    "stream_wait_s": r.timeline["decode"]["stream_wait_s"],
-                   "first_byte_s": first_byte_s(net, hops, nbytes,
-                                                1 if p2p else stream.chunks),
+                   "first_byte_s": first, "edge_modeled_s": whole,
                    "store_modeled_s": (s1["modeled_put_s"] - s0["modeled_put_s"]
-                                       + s1["modeled_get_s"] - s0["modeled_get_s"]),
-                   "edge_modeled_s": (net.transfer_s("us-east", "us-west", nbytes)
-                                      if p2p else None)}
+                                       + s1["modeled_get_s"] - s0["modeled_get_s"])}
             rows.append(row)
             log(f"[stream] {name} request {i} ({'cold' if i == 0 else 'warm'}) "
                 f"prompt {len(prompt)}: wall {r.total_s:.4f} s, stream_wait "
-                f"{row['stream_wait_s'] * 1e3:.3f} ms, edge first byte (modeled) "
-                f"{row['first_byte_s'] * 1e3:.3f} ms, store modeled "
-                f"{row['store_modeled_s']:.4f} s, tokens equal phase 4's")
+                f"{row['stream_wait_s'] * 1e3:.3f} ms, payload {nbytes} B, edge "
+                f"modeled first byte "
+                f"{first * 1e3:.3f} ms / whole {whole * 1e3:.3f} ms, store "
+                f"modeled {row['store_modeled_s']:.4f} s, tokens equal phase 4's")
         rep = dep.report()
         wrappers = {f"{n}@{p}": fn.wrapper.overhead_s / fn.wrapper.calls
                     for (n, p), fn in dep._functions.items() if fn.wrapper.calls}
@@ -3782,7 +3805,7 @@ def stream_setting(cfg, params, prompts, want, name, stream, payload_region):
 
 
 def stream_prefetch() -> dict:
-    """(c): a 64 MiB float32 tensor in the store (us-east), pre-fetched to
+    """(d): a 64 MiB float32 tensor in the store (us-east), pre-fetched to
     the card in us-west through ``Prefetcher(stream=StreamConfig(chunks=8))``:
     the chunked fetch, then the pinned side-stream copy and its event. It
     lands on the card bit for bit, counted as streamed."""
@@ -3814,27 +3837,32 @@ def stream_prefetch() -> dict:
            "exposed_s": exposed,
            "modeled_s": modeled, "first_byte_s": stats["first_byte_s"],
            "streamed": stats["streamed"]}
-    log(f"[stream] (c) {res['bytes'] / 2**20:.0f} MiB streamed prefetch in "
+    log(f"[stream] (d) {res['bytes'] / 2**20:.0f} MiB streamed prefetch in "
         f"{STREAM_CHUNKS} chunks onto {DEV}: bit-exact; wall {wall:.4f} s (joined "
         f"after {joined:.4f} s, the join's exposed wait {exposed:.4f} s), "
         f"modeled {modeled:.4f} s (first byte {res['first_byte_s']:.4f} s)")
     return res
 
 
-def wrapper_overhead() -> dict:
-    """The platform wrapper's own seconds a call on a CUDA platform (it
-    enters ``torch.cuda.device``) and on a CPU one, WRAPPER_CALLS calls of
-    a no-op each, held to WRAPPER_BAR_S."""
+def wrapper_overhead() -> tuple:
+    """The platform wrapper's own seconds a call (``overhead_s``, as the
+    JAX package measures it: the work before the step, without entering
+    the contexts) and the whole call's wall (the ``torch.cuda.device``
+    context's entry and exit included), on a CUDA platform and on a CPU
+    one, WRAPPER_CALLS calls of a no-op each, both held to WRAPPER_BAR_S."""
     from repro_torch.core.platform import PlatformWrapper
-    out = {}
+    own, call = {}, {}
     for dev in (str(DEV), "cpu"):
         w = PlatformWrapper(Platform("p", "us-east", device=dev), lambda p, d: p)
+        t0 = time.perf_counter()
         for _ in range(WRAPPER_CALLS):
             w(1, {})
-        out[dev] = w.overhead_s / w.calls
-        if not out[dev] < WRAPPER_BAR_S:
-            raise AssertionError(f"wrapper overhead {out[dev]} s a call on {dev}")
-    return out
+        call[dev] = (time.perf_counter() - t0) / WRAPPER_CALLS
+        own[dev] = w.overhead_s / w.calls
+        if not (own[dev] < WRAPPER_BAR_S and call[dev] < WRAPPER_BAR_S):
+            raise AssertionError(f"wrapper overhead {own[dev]} s, call {call[dev]} "
+                                 f"s a call on {dev}")
+    return own, call
 
 
 def phase_stream(cfg, params, prompts, requests) -> dict:
@@ -3843,11 +3871,14 @@ def phase_stream(cfg, params, prompts, requests) -> dict:
     prompts, every kernel counter at 0 just before and read just after:
     (a) StreamConfig(chunks=8) with a staging payload_region, so the
     prefill -> decode payload edge streams (the decode fires on its first
-    chunk); (b) a p2p threshold that sends that edge peer to peer. Every
-    request's tokens equal phase 4's; streamed_edges > 0 in (a), p2p_edges
-    > 0 in (b); exact launches (flash_attention per prefill, rmsnorm per
-    norm per pass). Then (c) the 64 MiB streamed prefetch onto the card and
-    the wrapper's overhead on a CUDA and a CPU platform."""
+    chunk); (b) a p2p threshold that sends that edge peer to peer; (c) the
+    caches in that payload as card tensors, sent peer to peer and computed
+    on by decode as received (the engine's claim that the device's default
+    stream orders them across the platform threads). Every request's tokens
+    equal phase 4's; streamed_edges > 0 in (a), p2p_edges > 0 in (b) and
+    (c); exact launches (flash_attention per prefill, rmsnorm per norm per
+    pass). Then (d) the 64 MiB streamed prefetch onto the card and the
+    wrapper's overhead on a CUDA and a CPU platform."""
     t_phase = time.perf_counter()
     want = [r["tokens"] for r in requests]
     per_prefill = launches_per_prefill(cfg)
@@ -3859,26 +3890,39 @@ def phase_stream(cfg, params, prompts, requests) -> dict:
         b = stream_setting(cfg, params, prompts, want, "(b) p2p",
                            StreamConfig(chunks=STREAM_CHUNKS,
                                         p2p_threshold_bytes=STREAM_P2P_BYTES), None)
+        c = stream_setting(cfg, params, prompts, want, "(c) p2p, caches on the card",
+                           StreamConfig(chunks=STREAM_CHUNKS,
+                                        p2p_threshold_bytes=STREAM_P2P_KV_BYTES),
+                           None, kv_in_payload=True)
         launches = launch_counts()
     check_launches(f"{cfg.name} streamed", per_prefill, launches, launches, passes.n,
-                   dict(passes.n), 2 * len(prompts), 0)
+                   dict(passes.n), 3 * len(prompts), 0)
     if not a["engine"]["streamed_edges"] > 0 or a["engine"]["p2p_edges"]:
         raise AssertionError(f"(a) did not stream its payload edges: {a['engine']}")
-    if not b["engine"]["p2p_edges"] > 0 or b["engine"]["streamed_edges"]:
-        raise AssertionError(f"(b) did not send its payload edges P2P: {b['engine']}")
-    for s in (a, b):
+    for name, x in (("(b)", b), ("(c)", c)):
+        if not x["engine"]["p2p_edges"] > 0 or x["engine"]["streamed_edges"]:
+            raise AssertionError(f"{name} did not send its payload edges P2P: "
+                                 f"{x['engine']}")
+    if not (c["requests"][0]["payload_bytes"]
+            > 1000 * b["requests"][0]["payload_bytes"]):
+        raise AssertionError("(c)'s payload did not carry the caches: "
+                             f"{c['requests'][0]} against {b['requests'][0]}")
+    for s in (a, b, c):
         if s["compile"]["prewarms"] != 1 or s["compile"]["misses"] != 0:
             raise AssertionError(f"decode was not pre-warmed by the poke: "
                                  f"{s['compile']}")
-    res = {"streamed": a, "p2p": b, "prefetch": stream_prefetch(),
-           "wrapper_overhead_s": wrapper_overhead(), "launches": launches,
+    res = {"streamed": a, "p2p": b, "p2p_kv": c, "prefetch": stream_prefetch(),
+           "launches": launches,
            "passes": passes.n, "per_prefill": per_prefill}
+    res["wrapper_overhead_s"], res["wrapper_call_s"] = wrapper_overhead()
     res["wall_s"] = time.perf_counter() - t_phase
     log(f"[stream] {cfg.name}: (a) streamed_edges {a['engine']['streamed_edges']}, "
-        f"(b) p2p_edges {b['engine']['p2p_edges']}, every request's tokens equal "
+        f"(b) p2p_edges {b['engine']['p2p_edges']}, (c) p2p_edges with the caches "
+        f"on the card {c['engine']['p2p_edges']}, every request's tokens equal "
         f"phase 4's; launches {launches} over passes {passes.n}; wrapper overhead "
-        + ", ".join(f"{d} {v * 1e6:.2f} us" for d, v in
-                    res["wrapper_overhead_s"].items())
+        + ", ".join(f"{d} {v * 1e6:.2f} us (the whole call "
+                    f"{res['wrapper_call_s'][d] * 1e6:.2f} us)"
+                    for d, v in res["wrapper_overhead_s"].items())
         + f" a call; {res['wall_s']:.1f} s")
     return res
 

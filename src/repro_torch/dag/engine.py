@@ -538,7 +538,9 @@ class DagDeployment:
                         # a handler sets its own), so the successor's
                         # kernels queue behind the ones that wrote it. A
                         # handler that computes on a stream of its own
-                        # synchronises it before it returns.
+                        # synchronises it before it returns. chip_smoke.py
+                        # phase 15 (c) sends a served model's caches so, on
+                        # the card, and holds decode's tokens to phase 4's.
                         p2p_dt = self.registry.network.transfer_s(
                             src_plat.region, dst_plat.region, nbytes
                         )

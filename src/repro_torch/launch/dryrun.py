@@ -25,8 +25,9 @@ optimizer apply step, or prefill, or one decode step. ``Accounting``
 
 Kernel paths are off (``use_pallas=False``): a hand-written kernel runs on
 the card only, and the training path is the plain one. The output has the
-JAX dry-run's keys and goes to ``experiments/dryrun_torch/`` (not
-``experiments/dryrun/``, which the JAX package's tests read).
+JAX dry-run's keys and goes to ``experiments/dryrun_torch/`` under the
+current directory (not ``experiments/dryrun/``, which the JAX package's
+tests read), or to ``--out-dir``.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen3-1.7b --shape train_4k [--multi-pod]
@@ -58,8 +59,7 @@ from repro_torch.models import params as prm
 from repro_torch.models.params import check_device
 from repro_torch.optim import AdamW
 
-OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
-                       "experiments", "dryrun_torch")
+OUT_DIR = os.path.join("experiments", "dryrun_torch")
 MICRO_TOKENS_PER_DEV = 4096   # microbatch sizing target (activation memory)
 
 
@@ -102,16 +102,23 @@ def price_collectives(records, nvlink_groups) -> dict:
 # per-cell execution defaults (the baseline; --set overrides for hillclimbs)
 # ---------------------------------------------------------------------------
 def cell_defaults(cfg, shape):
-    """The JAX dry-run's per-kind defaults (``scan_layers`` has no meaning
-    in eager PyTorch) with the kernel paths off."""
+    """The JAX dry-run's per-kind defaults with the kernel paths off.
+    ``scan_layers`` has no meaning in eager PyTorch. ``attn_chunk_unroll``
+    changes nothing in the port's run (its q chunks are a Python loop, one
+    chunk live at a time, as in the JAX package's scan); it is set as the
+    JAX dry-run sets it, so that ``CellModel`` counts the chunked
+    attention's K/V reloads in its HBM bytes and records the scan
+    correction, as for the JAX package's cells."""
     kw = {"use_pallas": False}
     if shape.kind == "train":
         kw["remat"] = cfg.remat if cfg.remat != "none" else "full"
         kw["attn_chunk_q"] = cfg.attn_chunk_q or 512
+        kw["attn_chunk_unroll"] = False
         if cfg.vocab_size % 16 != 0 and cfg.vocab_size > 10_000:
             kw["ce_chunk"] = cfg.ce_chunk or 512
     elif shape.kind == "prefill":
         kw["attn_chunk_q"] = cfg.attn_chunk_q or 256
+        kw["attn_chunk_unroll"] = False
     return cfg.replace(**kw)
 
 

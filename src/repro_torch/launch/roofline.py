@@ -29,7 +29,8 @@ roofline fraction and bottleneck; ``--check`` compares them within
 ``--rtol`` (5%). A baselined cell missing from the artifacts fails unless
 ``--allow-missing``; a cell without a baseline is reported as new.
 
-Usage:
+Usage, from the checkout's root (the default paths are relative to the
+current directory):
   python -m repro_torch.launch.roofline                  # the table
   python -m repro_torch.launch.roofline --dir DIR --check
   python -m repro_torch.launch.roofline --dir DIR --write
@@ -45,9 +46,10 @@ from types import SimpleNamespace
 
 from repro_torch.launch import mesh as meshlib
 
-ROOT = os.path.join(os.path.dirname(__file__), "..", "..", "..")
-DRYRUN_DIR = os.path.join(ROOT, "experiments", "dryrun_torch")
-BASELINE_PATH = os.path.join(ROOT, "experiments", "baselines",
+# relative to the current directory (the checkout's root), as the dry-run
+# writes them
+DRYRUN_DIR = os.path.join("experiments", "dryrun_torch")
+BASELINE_PATH = os.path.join("experiments", "baselines",
                              "roofline_baselines_torch.json")
 TERMS = ("compute_s", "memory_s", "collective_s")
 CHECKED = (*TERMS, "useful_flops_ratio", "roofline_fraction")

@@ -163,28 +163,48 @@ def test_prewarm_hides_compile():
     assert got["torch"][0].outputs == pytest.approx(got["jax"][0].outputs, rel=1e-5)
 
 
-@pytest.mark.parametrize("device", ["cpu", "cuda"])
-def test_wrapper_overhead_below_1ms(device, monkeypatch):
-    """Paper §4.1: the platform wrapper adds < 1 ms a call, in both packages.
-    The port's wrapper enters a null context on a CPU platform and a
-    ``torch.cuda.device`` context on a CUDA one; without a card the CUDA
-    context is stood in by a no-op here (the chip run times the real one,
-    ``chip_smoke.py`` phase 15)."""
+def test_wrapper_overhead_below_1ms():
+    """Paper §4.1: the platform wrapper adds < 1 ms a call, in both packages,
+    on a CPU platform (``chip_smoke.py`` phase 15 times the port's on a
+    CUDA platform)."""
     from repro.core.platform import PlatformWrapper as JWrapper
     from repro_torch.core import platform as tplatform
-    if device == "cuda":
-        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-        monkeypatch.setattr(torch.cuda, "device", lambda d: tplatform._null_ctx())
     wrappers = {"jax": JWrapper(jcore.Platform("edge-eu", "eu"), lambda p, d: p,
                                 "noop"),
                 "torch": tplatform.PlatformWrapper(
-                    tplatform.Platform("edge-eu", "eu", device=device),
+                    tplatform.Platform("edge-eu", "eu", device="cpu"),
                     lambda p, d: p, "noop")}
     for name, w in wrappers.items():
         for _ in range(200):
             assert w(1, {}) == 1
         assert w.calls == 200
         assert w.overhead_s / w.calls < 1e-3, (name, w.overhead_s / w.calls)
+
+
+@pytest.mark.parametrize("device,entered", [("cpu", []), ("cuda", ["cuda"]),
+                                            ("cuda:0", ["cuda:0"])])
+def test_wrapper_enters_the_platform_device(device, entered, monkeypatch):
+    """The port's wrapper runs the step inside ``torch.cuda.device`` of a
+    CUDA platform, and inside no device context on a CPU one."""
+    from repro_torch.core import platform as tplatform
+    log = []
+
+    class Recorder:
+        def __init__(self, dev):
+            self.dev = str(dev)
+
+        def __enter__(self):
+            log.append(self.dev)
+
+        def __exit__(self, *a):
+            log.append("exit")
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device", Recorder)
+    w = tplatform.PlatformWrapper(tplatform.Platform("edge-eu", "eu", device=device),
+                                  lambda p, d: log.append("step") or p, "noop")
+    assert w(1, {}) == 1
+    assert log == (entered + ["step", "exit"] if entered else ["step"])
 
 
 def test_adhoc_recomposition_no_redeploy():

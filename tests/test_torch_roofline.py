@@ -2,9 +2,12 @@
 (``repro_torch.launch.roofline``) on the dry-run's 16-rank smoke cells, as
 ``test_torch_dryrun.py`` builds them: the analytic memory term, the
 bottleneck, ``--write`` then ``--check``, a drifted term, a missing cell
-and the fault-5 flag. The cells run in a subprocess: a fake process group
-is global to its process."""
+and the fault-5 flag; then held to the JAX package's report
+(``benchmarks/roofline.py::_augment``) and baseline check
+(``scripts/check_roofline_baselines.py``) on the same rows. The cells run
+in a subprocess: a fake process group is global to its process."""
 import copy
+import importlib.util
 import json
 import os
 import subprocess
@@ -176,3 +179,160 @@ def test_peak_over_hbm_is_flagged(cells):
     r["peak_temp_bytes"] = meshlib.HBM_BYTES + 1
     assert rf.augment(r, *smoke_resolve(r))["flags"] == ["over-hbm"]
     assert "over-hbm" in rf.fmt_row(r)
+
+
+# -- held to the JAX package's report and baseline check ----------------------
+REF_CELLS = (("qwen3-1.7b", "train_4k"), ("qwen3-1.7b", "decode_32k"),
+             ("granite-moe-3b-a800m", "train_4k"),
+             ("recurrentgemma-9b", "prefill_32k"))
+
+
+def ref_modules():
+    """The JAX package's report and its baseline check, as modules."""
+    from benchmarks import roofline as jrf
+    spec = importlib.util.spec_from_file_location(
+        "check_roofline_baselines",
+        os.path.join(ROOT, "scripts", "check_roofline_baselines.py"))
+    jcheck = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jcheck)
+    return jrf, jcheck
+
+
+def renamed(cells, arch, shape, mesh):
+    """The smoke train row renamed to a full-size cell on ``mesh``: the
+    analytic term reads only the row's names, batch, n_micro and params."""
+    row = copy.deepcopy(next(r for r in raw(cells).values() if r["shape"] == "t"))
+    row.update(arch=arch, shape=shape, mesh=mesh, n_micro=1,
+               micro_global_batch=SHAPES[shape].global_batch)
+    return row
+
+
+@pytest.mark.parametrize("winner", ["compute", "memory", "collective"])
+@pytest.mark.parametrize("mesh", ["pod_16x16", "multipod_2x16x16"])
+@pytest.mark.parametrize("arch,shape", REF_CELLS)
+def test_augment_agrees_with_the_reference(cells, monkeypatch, arch, shape, mesh,
+                                           winner):
+    """One row renamed to a cell on the reference's own meshes goes through
+    ``_augment`` and the port's ``augment``: the same HBM bytes (memory_s
+    times each side's HBM_BW); with HBM_BW made equal, the same memory
+    term, bottleneck and lower bound. The row's compute and collective
+    terms are set around the memory term so that ``winner`` is largest."""
+    jrf, _ = ref_modules()
+    row = renamed(cells, arch, shape, mesh)
+    mem = jrf._augment(copy.deepcopy(row))["roofline"]["memory_s"]
+    for term in ("compute", "collective"):
+        row["roofline"][f"{term}_s"] = mem * (2.0 if term == winner else 0.5)
+    want = jrf._augment(copy.deepcopy(row))["roofline"]
+    got = rf.augment(copy.deepcopy(row))["roofline"]
+    assert got["memory_s"] * meshlib.HBM_BW == pytest.approx(
+        want["memory_s"] * jrf.HBM_BW, rel=1e-12)
+    assert want["bottleneck"] == winner
+    monkeypatch.setattr(meshlib, "HBM_BW", jrf.HBM_BW)
+    got = rf.augment(copy.deepcopy(row))["roofline"]
+    assert got["bottleneck"] == want["bottleneck"]
+    for k in ("memory_s", "step_s_lower_bound", "compute_s", "collective_s"):
+        assert got[k] == pytest.approx(want[k], rel=1e-12), k
+    assert got["memory_s_counted_upper"] == want["memory_s_xla_upper"]
+
+
+@pytest.mark.parametrize("mesh,axes", [
+    ("pod_32x8", {"data": 32, "model": 8}),
+    ("multipod_2x32x8", {"pod": 2, "data": 32, "model": 8})])
+@pytest.mark.parametrize("arch,shape", REF_CELLS)
+def test_h100_mesh_memory_term_equals_the_reference_cell_model(cells, arch, shape,
+                                                               mesh, axes):
+    """On the H100 meshes, which are not square, the port's memory term is
+    the reference's ``CellModel`` on the mesh's (pod, data, model) sizes,
+    and not on the sizes with data and model swapped."""
+    from repro.configs.base import SHAPES as JSHAPES
+    from repro.configs.registry import get_config as jget
+    from repro.launch.analytic import CellModel as JCellModel
+    from repro.launch.dryrun import cell_defaults as jdefaults
+    row = renamed(cells, arch, shape, mesh)
+    jshape = JSHAPES[shape]
+    jcfg = jdefaults(jget(arch), jshape)
+
+    def ref_bytes(ms):
+        return JCellModel(jcfg, jshape, ms, row["micro_global_batch"]).hbm_bytes_dev(
+            row["n_micro"], row["params"])
+
+    got = rf.augment(copy.deepcopy(row))["roofline"]["memory_s"] * meshlib.HBM_BW
+    assert got == pytest.approx(ref_bytes(axes), rel=1e-12)
+    swapped = dict(axes, data=axes["model"], model=axes["data"])
+    assert got != pytest.approx(ref_bytes(swapped), rel=1e-3)
+
+
+def test_summarize_and_cell_key_equal_the_reference(cells, monkeypatch):
+    """``summarize`` and ``cell_key`` against the reference script's, with
+    the peak made equal, on the smoke rows, a tagged one among them."""
+    jrf, jcheck = ref_modules()
+    monkeypatch.setattr(jrf, "PEAK_FLOPS_BF16", meshlib.PEAK_FLOPS_BF16)
+    rows = rf.load(str(cells), resolve=smoke_resolve)
+    rows.append(dict(copy.deepcopy(rows[0]), tag="variant"))
+    for r in rows:
+        assert rf.cell_key(r) == jcheck.cell_key(r)
+        assert rf.summarize(r) == jcheck.summarize(r)
+    assert len({rf.cell_key(r) for r in rows}) == 4
+
+
+def _moved(term, f):
+    def edit(base, rows):
+        base["qwen3-1.7b|t|pod_4x4|"][term] *= f
+        return base, rows
+    return edit
+
+
+def _flip_bottleneck(base, rows):
+    cell = base["qwen3-1.7b|p|pod_4x4|"]
+    cell["bottleneck"] = next(b for b in ("compute", "memory", "collective")
+                              if b != cell["bottleneck"])
+    return base, rows
+
+
+# scenario -> (edit of (baseline, rows), the reference's exit code without
+# --allow-missing, with it)
+CHECK_CASES = {
+    "unchanged": (lambda b, r: (b, r), 0, 0),
+    **{f"{t}*{f}": (_moved(t, f), int(abs(f - 1) > 0.05), int(abs(f - 1) > 0.05))
+       for t in (*rf.TERMS, "useful_flops_ratio", "roofline_fraction")
+       for f in (0.94, 0.96, 1.04, 1.06)},
+    "bottleneck": (_flip_bottleneck, 1, 1),
+    "missing": (lambda b, r: (b, r[1:]), 1, 0),
+    "new": (lambda b, r: ({k: v for k, v in b.items()
+                           if k != "qwen3-1.7b|d|pod_4x4|"}, r), 0, 0),
+}
+
+
+@pytest.mark.parametrize("allow_missing", [False, True])
+@pytest.mark.parametrize("case", sorted(CHECK_CASES))
+def test_check_agrees_with_the_reference_script(cells, tmp_path, monkeypatch, capsys,
+                                                case, allow_missing):
+    """The reference script's ``--write`` and the port's write the same
+    baseline (peak made equal); after the same edit of baseline or cells,
+    both give the same exit code and the same lines for each cell."""
+    jrf, jcheck = ref_modules()
+    monkeypatch.setattr(jrf, "PEAK_FLOPS_BF16", meshlib.PEAK_FLOPS_BF16)
+    rows = rf.load(str(cells), resolve=smoke_resolve)
+    jbase, tbase = str(tmp_path / "ref.json"), str(tmp_path / "port.json")
+    monkeypatch.setattr(jcheck, "BASELINE_PATH", jbase)
+    monkeypatch.setattr(jrf, "load", lambda *a, **k: rows)
+    assert jcheck.main(["--write"]) == 0
+    assert rf.check(rows, tbase, write=True) == 0
+    assert json.load(open(tbase)) == json.load(open(jbase))
+    edit, rc, rc_allowed = CHECK_CASES[case]
+    base, now = edit(json.load(open(jbase)), rows)
+    for path in (jbase, tbase):
+        with open(path, "w") as f:
+            json.dump(base, f)
+    monkeypatch.setattr(jrf, "load", lambda *a, **k: now)
+    capsys.readouterr()
+    want = jcheck.main(["--allow-missing"] if allow_missing else [])
+    want_out = capsys.readouterr().out
+    got = rf.check(now, tbase, allow_missing=allow_missing)
+    got_out = capsys.readouterr().out
+    assert want == (rc_allowed if allow_missing else rc)
+    assert got == want
+
+    def per_cell(out):
+        return sorted(ln for ln in out.splitlines() if ln.startswith("  "))
+    assert per_cell(got_out) == per_cell(want_out)
