@@ -171,18 +171,47 @@ no result):
               meshes, in a subprocess started after the build (it shares
               the host's cores with phases 3-14), one roofline line a
               cell, the invariants of tests/test_dryrun.py
+ 15. stream   qwen3-1.7b's federated workflow with the streaming data
+              plane: streamed, P2P, and P2P with the caches as card tensors
+              in the payload (tokens equal phase 4's); a 64 MiB streamed
+              prefetch onto the card; the platform wrapper's overhead
+ 16. entry    the JAX package's entry points on the port
+              (repro_torch.examples, repro_torch.scripts), each on the card:
+              (a) the document workflow as its main runs it (e-mails equal
+              the CPU handlers', joins 8 and pokes 4 a node, OCR placed on
+              lambda-us, the pre-fetching DAG's median below the no-poke
+              DAG's, the reduction printed beside the paper's 50%, the torch
+              sweep's medians within 1% of numpy's, 4 cold_scan launches);
+              (b) trace_diff --quick (each trace's attribution, summed
+              over its rows' buckets, within 1e-6 a bucket of its total;
+              the Perfetto file under build/ parses back); (c) obs_report
+              --quick (the reference's keys, 4 seen, a non-empty top 3
+              ranked on the card); (d) the quickstart and (e) federated
+              serving at qwen3-1.7b's full width on phase 4's weights,
+              after its phase 15 (the host mesh made first and its first
+              use timed apart; warm below cold, the table pre-fetched on
+              each run, cold == warm results; tokens equal a direct
+              prefill + decode chain; exact launches); (f) train_lm
+              --steps 40 (the loss falls, the restart resumes at step 20,
+              no kernel launches); (g) smoke_models (ALL OK, each kernel on
+              its families only, exactly; each arch's loss, prefill and
+              decode logits against its plain path on the same params and
+              batch, TOL[float32] x the largest logit)
 Then one JSON line describing every kernel (launches counted over the main
 paths: serving and batching of the ten models, phases 11 (b) and 12,
-training and 13 (d)'s forward, and phase 14's meshed serving and training
-for flash_attention, ssd_scan, rglru_scan and rmsnorm, the simulator, the
-recomposition and phase 11's (a, c, d) for cold_scan), the card's name and
-power limit, and the last line {"ok": true, "device": {...}}.
+training and 13 (d)'s forward, phase 14's meshed serving and training,
+phase 15's streamed serving and phase 16's entry points for
+flash_attention, ssd_scan, rglru_scan and rmsnorm; the simulator, the
+recomposition, phase 11's (a, c, d) and phase 16's (a, c) for cold_scan),
+the card's name and power limit, and the last line {"ok": true, "device":
+{...}}.
 
     python3 chip_smoke.py --only kernels,ssd_scan
 
 runs phases 1-2 and the named ones of kernels, ssd_scan, rglru_scan,
-rmsnorm, cold_scan, obs, jobs, train and mesh only (a short call to bring up a
-kernel or a phase), prints their results and no final line. ``--only tile_cost``
+rmsnorm, cold_scan, obs, jobs, train, mesh, stream and entry only (a short
+call to bring up a kernel or a phase), prints their results and no final
+line. ``--only tile_cost``
 times one kv tile of the wgmma flash kernel at d = 64, 128, 256, a
 diagnostic no default run makes.
 """
@@ -201,6 +230,7 @@ import sys
 import threading
 import time
 from dataclasses import replace
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -2883,8 +2913,9 @@ def serve_model(arch) -> dict:
     workflow and (for a decoder) continuous batching with every kernel
     counter at 0 just before and read just after, then the checks and the
     profile off the counted path; for the first four models the norm A/B
-    phases, and for qwen3-1.7b the traced serving, the profiler and the
-    jobs phases on the same weights. The card's peak allocation is logged
+    phases, and for qwen3-1.7b the traced serving, the profiler, the jobs,
+    meshed and streamed phases and phase 16's quickstart and federated
+    serving on the same weights. The card's peak allocation is logged
     after init and after each phase; the model's wall from its first draw
     to its weights freed."""
     t_model = time.perf_counter()
@@ -2908,7 +2939,7 @@ def serve_model(arch) -> dict:
         memory_mark(memory, "batching")
     check_launches(arch, per_prefill, fed, total, passes.n, fed_passes,
                    len(prompts), n_batched)
-
+    extra = {}
     moe = None
     if cfg.num_experts:
         moe = phase_moe(cfg, params, prompts[1])
@@ -2925,13 +2956,17 @@ def serve_model(arch) -> dict:
     if arch in AB_ARCHS:
         norm_ab = phase_norm_ab(cfg, params, prompts[0])
         prologue_ab = phase_prologue_ab(cfg, params, prompts[0])
-    extra = serve_obs_jobs(cfg, params, prompts) if arch == OBS_ARCH else {}
+    if arch == OBS_ARCH:
+        extra.update(serve_obs_jobs(cfg, params, prompts))
     if arch == MESH_ARCH:
         extra["mesh"] = phase_mesh_serving(cfg, params, prompts, requests, batching)
         memory_mark(memory, "mesh")
     if arch == STREAM_ARCH:
         extra["stream"] = phase_stream(cfg, params, prompts, requests)
         memory_mark(memory, "stream")
+    if arch == ENTRY_ARCH:
+        extra["entry"] = phase_entry_served(cfg, params)
+        memory_mark(memory, "entry")
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -3939,13 +3974,376 @@ def phase_stream_only() -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the reference's entry points on the port
+# ---------------------------------------------------------------------------
+ENTRY_ARCH = "qwen3-1.7b"  # (d) and (e) run on its loaded weights
+ENTRY_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                         "chip_smoke_entry")
+ENTRY_TRAIN_STEPS = 40
+ENTRY_OCR_REL = 1e-4  # the OCR sum on the card against the CPU's
+ENTRY_SIM_REL = 0.01  # the torch sweep's medians against numpy's (phase 9)
+ENTRY_ATTR_TOL = 1e-6  # s a bucket: trace_diff's rows round each to 6 digits
+PAPER_REDUCTION = 0.5  # the abstract: "more than 50%" lower latency
+OBS_REPORT_KEYS = ["profiler_top3", "slo", "top_series_by_windowed_p99",
+                   "trace_sampler"]  # scripts/obs_report.py's report
+
+
+def captured(tag, fn, *a, **kw):
+    """``fn(*a, **kw)`` with what it prints logged line by line under
+    ``[entry] tag``; returns its result."""
+    import contextlib
+    import io
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            return fn(*a, **kw)
+    finally:
+        for ln in out.getvalue().splitlines():
+            log(f"[entry] {tag} {ln}")
+
+
+def entry_document_workflow() -> dict:
+    """(a) ``examples.document_workflow.main`` on the card, cold_scan's
+    launches counted around it; the e-mails against the handlers run on the
+    CPU, the OCR sum on the card against the CPU's."""
+    from repro_torch.examples import document_workflow as dw
+    cold_scan.launches = 0
+    res = captured("(a)", dw.main, device=str(DEV))
+    launches = cold_scan.launches
+    pdf, data = dw.make_pdf(), {}
+    dw.seed_store(SimpleNamespace(put=lambda k, v, region: data.__setitem__(k, v)),
+                  np.random.default_rng(dw.STORE_SEED))
+    cpu = dw.ocr(pdf, data)
+    card = dw.ocr(pdf, {"ocr/weights": torch.as_tensor(data["ocr/weights"],
+                                                         device=DEV)})
+    ocr_rel = abs(card["text"] - cpu["text"]) / abs(cpu["text"])
+    want = {"dag": dw.e_mail({"virus": dw.virus(pdf, data), "ocr": cpu}, data),
+            "chain": dw.chain_email(cpu, data)}
+    med = res["medians_s"]
+    sim = res["sim"]
+    sim_rel = [abs(a - b) / b for a, b in zip(sim["sweep_medians_s"],
+                                              sim["numpy_placement_medians_s"])]
+    log(f"[entry] (a) medians: " + ", ".join(f"{k} {v * 1e3:.1f} ms"
+                                             for k, v in med.items())
+        + f"; pre-fetching DAG's reduction {res['reduction_vs_no_poke']:.1%} "
+        f"against the no-poke DAG, {res['reduction_vs_chain']:.1%} against the "
+        f"chain (the paper: more than {PAPER_REDUCTION:.0%}, not gated); critical "
+        f"path {'->'.join(res['critical_path'])}; OCR on the card {card['text']} "
+        f"vs CPU {cpu['text']} (rel {ocr_rel:.3g}); torch sweep medians "
+        f"{sim['sweep_medians_s']} vs numpy {sim['numpy_placement_medians_s']} "
+        f"(rel {max(sim_rel):.3g}); cold_scan launches {launches}")
+    bad = {k: [e for e in res["emails"][k] if e != want[k]] for k in want}
+    if any(bad.values()):
+        raise AssertionError(f"(a) e-mails differ from the CPU run's {want}: {bad}")
+    if not ocr_rel <= ENTRY_OCR_REL:
+        raise AssertionError(f"(a) OCR sum {card} on the card vs {cpu} on the CPU")
+    if res["joins"] != 8 or res["pokes"] != {"e_mail": 4, "ocr": 4, "virus": 4}:
+        raise AssertionError(f"(a) joins {res['joins']}, pokes {res['pokes']}")
+    if res["placed_ocr"] != "lambda-us":
+        raise AssertionError(f"(a) place_dag_spec ships ocr to {res['placed_ocr']}")
+    if not med["dag geoff (pre-fetching)"] < med["dag baseline (no poke)"]:
+        raise AssertionError(f"(a) the pre-fetching DAG is not faster: {med}")
+    if not max(sim_rel) <= ENTRY_SIM_REL:
+        raise AssertionError(f"(a) torch sweep medians off numpy's: {sim}")
+    if launches != 4:
+        raise AssertionError(f"(a) {launches} cold_scan launches != 4 (one sweep)")
+    return {**res, "ocr_card": card["text"], "ocr_cpu": cpu["text"],
+            "ocr_rel": ocr_rel, "sim_rel": sim_rel, "cold_scan_launches": launches}
+
+
+def entry_trace_diff() -> dict:
+    """(b) ``scripts.trace_diff.main(quick=True)``: both traces'
+    attributions, bucket by bucket from the rows, sum to their totals (the
+    rows round each to 6 digits); the Perfetto file parses back."""
+    from repro_torch.obs import BUCKETS
+    from repro_torch.scripts import trace_diff as td
+    cold_scan.launches = 0
+    rows = captured("(b)", td.main, quick=True, out_dir=ENTRY_DIR, device=str(DEV))
+    gaps = {side: abs(sum(rows[f"{side}_{b}_s"] for b in BUCKETS)
+                      - rows[f"{side}_total_s"]) for side in ("real", "sim")}
+    with open(rows["trace_path"]) as f:
+        doc = json.load(f)
+    events = doc["traceEvents"] if isinstance(doc, dict) else doc
+    log(f"[entry] (b) attribution gaps {gaps} s; {len(events)} Perfetto events "
+        f"in {os.path.relpath(rows['trace_path'])}")
+    if not max(gaps.values()) <= ENTRY_ATTR_TOL * len(BUCKETS):
+        raise AssertionError(f"(b) attribution does not sum to the total: {gaps}")
+    if not events:
+        raise AssertionError("(b) the Perfetto trace holds no event")
+    return {**rows, "attribution_gap_s": gaps, "perfetto_events": len(events),
+            "cold_scan_launches": cold_scan.launches}
+
+
+def entry_obs_report() -> dict:
+    """(c) ``scripts.obs_report.main(quick=True)``: the reference's report
+    keys, every request seen, a non-empty top 3 from the profiler on the
+    card (cold_scan launches counted)."""
+    from repro_torch.scripts import obs_report as orp
+    cold_scan.launches = 0
+    report = captured("(c)", orp.main, quick=True, out_dir=ENTRY_DIR,
+                      device=str(DEV))
+    launches = cold_scan.launches
+    log(f"[entry] (c) keys {sorted(report)}; seen "
+        f"{report['trace_sampler']['seen']}; top 3 "
+        f"{[r['label'] for r in report['profiler_top3']]}; cold_scan launches "
+        f"{launches}")
+    if sorted(report) != OBS_REPORT_KEYS:
+        raise AssertionError(f"(c) report keys {sorted(report)}")
+    if report["trace_sampler"]["seen"] != 4 or not report["profiler_top3"]:
+        raise AssertionError(f"(c) sampler {report['trace_sampler']}, top 3 "
+                             f"{report['profiler_top3']}")
+    if launches == 0:
+        raise AssertionError("(c) the profiler never launched cold_scan")
+    return {"report": report, "cold_scan_launches": launches}
+
+
+def entry_counted(tag, cfg, fn, *a, **kw):
+    """``fn`` with every model kernel's count at 0 just before and read just
+    after, and the forward passes counted: (result, launches, passes).
+    Exact: each kernel per layer of its kind per prefill, rmsnorm per norm
+    per pass."""
+    per = launches_per_prefill(cfg)
+    for k in MODEL_KERNELS.values():
+        k.launches = 0
+    with counting_passes() as passes:
+        res = captured(tag, fn, *a, **kw)
+        launches = launch_counts()
+    n = passes.n
+    want = {name: c * (n["prefill"] + (n["decode"] if name == "rmsnorm" else 0))
+            for name, c in per.items()}
+    log(f"[entry] {tag} launches {launches} over passes {n} (want {want})")
+    if launches != want:
+        raise AssertionError(f"{tag} launches {launches} != {want}")
+    return res, launches, dict(n)
+
+
+def mesh_first_use() -> float:
+    """Seconds to make a host mesh of the card (the process's one-rank
+    NCCL group where there is none yet) and run DTensor's first sharded
+    op on it: paid here, once per process, so that the quickstart's cold
+    run pays only what its engine and its shapes cost, in any phase
+    order."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    sync()
+    t0 = time.perf_counter()
+    mesh = make_host_mesh(model_parallel=1, device=str(DEV))
+    x = distribute_tensor(torch.ones(8, 8, device=DEV), mesh,
+                          [Replicate(), Replicate()])
+    shd.full(x @ x)
+    sync()
+    return time.perf_counter() - t0
+
+
+def entry_quickstart(cfg, params) -> dict:
+    """(d) ``examples.quickstart.main`` on phase 4's weights at full width,
+    the clouds on a host mesh of the card made first (``mesh_first_use``,
+    timed apart). Gates: warm below cold, the table pre-fetched on every
+    run and never fetched cold, finite results, cold equal to warm."""
+    from repro_torch.examples import quickstart as qs
+    first_use = mesh_first_use()
+    res, launches, passes = entry_counted("(d)", cfg, qs.main, cfg, params,
+                                          device=str(DEV))
+    out, walls, pf = res["outputs"], res["total_s"], res["prefetcher"]
+    log(f"[entry] (d) mesh and DTensor first use {first_use:.4f} s (before the "
+        f"quickstart); walls cold {walls['cold']:.4f} s, warm {walls['warm']:.4f} "
+        f"s, rerouted {walls['rerouted']:.4f} s; outputs {out}; prefetcher {pf}")
+    if not all(math.isfinite(v) for v in out.values()) or out["cold"] != out["warm"]:
+        raise AssertionError(f"(d) outputs {out}")
+    if not walls["warm"] < walls["cold"]:
+        raise AssertionError(f"(d) the warm run is not faster: {walls}")
+    if pf["prefetched"] != 3 or pf["cold_fetches"] != 0:
+        raise AssertionError(f"(d) the table was not pre-fetched on each of the 3 "
+                             f"runs: {pf}")
+    if passes != {"prefill": 3, "decode": 0}:
+        raise AssertionError(f"(d) forward passes {passes}")
+    return {**res, "mesh_first_use_s": first_use, "launches": launches,
+            "passes": passes}
+
+
+def entry_federated(cfg, params) -> dict:
+    """(e) ``examples.federated_serving.main`` on phase 4's weights at full
+    width; every request's tokens against a direct prefill + decode chain
+    on the same weights and prompts (off the counted path)."""
+    from repro_torch.examples import federated_serving as fs
+    res, launches, passes = entry_counted("(e)", cfg, fs.main, cfg, params,
+                                          device=str(DEV))
+    for req in res["requests"]:
+        prompt = np.asarray(req["prompt"], np.int32)
+        logits, caches = M.prefill(cfg, params, {"tokens": torch.as_tensor(
+            prompt, device=DEV)[None]})
+        caches = pad_cache(caches, fs.MAXLEN, len(prompt), cfg=cfg)
+        toks = [greedy(logits)]
+        for j in range(fs.DECODE_STEPS):
+            logits, caches = M.decode_step(
+                cfg, params, torch.tensor([[toks[-1]]], dtype=torch.int32,
+                                          device=DEV), caches, len(prompt) + j)
+            toks.append(greedy(logits))
+        if req["tokens"] != toks:
+            raise AssertionError(f"(e) tokens {req['tokens']} != the direct "
+                                 f"chain's {toks}")
+    b = res["batching"]
+    log(f"[entry] (e) decode on {res['decode_platform']}; every request's tokens "
+        f"equal the direct chain's; batching done {b['done']}, prefills "
+        f"{b['prefills']}, decode steps {b['decode_steps']}")
+    if res["decode_platform"] != "prefill-pod" or b["done"] != 6:
+        raise AssertionError(f"(e) placement {res['decode_platform']}, batching {b}")
+    want = {"prefill": 3 + b["prefills"],
+            "decode": 3 * fs.DECODE_STEPS + b["decode_steps"]}
+    if passes != want:
+        raise AssertionError(f"(e) forward passes {passes} != {want}")
+    return {**res, "launches": launches, "passes": passes}
+
+
+def phase_entry_served(cfg, params) -> dict:
+    """Phase 16 (d, e) on the loaded qwen3-1.7b, after its phases 14
+    (a) and 15, so that phase 14 (a) stays the process's first mesh."""
+    t0 = time.perf_counter()
+    res = {"quickstart": entry_quickstart(cfg, params),
+           "federated_serving": entry_federated(cfg, params)}
+    res["wall_s"] = time.perf_counter() - t0
+    return res
+
+
+def entry_train_lm() -> dict:
+    """(f) ``examples.train_lm`` with ``--steps 40`` on the card: its assert
+    (the loss falls), the restart resumes at the checkpoint of step 20, no
+    port kernel launches (training has none)."""
+    from repro_torch.examples import train_lm
+    ckpt = os.path.join(ENTRY_DIR, "train_lm_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    for k in MODEL_KERNELS.values():
+        k.launches = 0
+    try:
+        res = captured("(f)", train_lm.main,
+                       ["--steps", str(ENTRY_TRAIN_STEPS), "--device", str(DEV),
+                        "--ckpt-dir", ckpt])
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    launches = launch_counts()
+    half = ENTRY_TRAIN_STEPS // 2
+    if res["resumed_at"] != half or res["checkpoint"]["restores"] != 1:
+        raise AssertionError(f"(f) resumed at {res['resumed_at']}, checkpoint "
+                             f"{res['checkpoint']}")
+    if any(launches.values()):
+        raise AssertionError(f"(f) training launched port kernels: {launches}")
+    return {**res, "launches": launches}
+
+
+def smoke_plain_gaps(kernel) -> dict:
+    """(g)'s check off the counted path, for one of smoke_models' results:
+    the arch's smoke config on the plain path (use_pallas off) on the same
+    params and batch (``smoke_arch`` draws both from seed 0 on the card),
+    the train forward's loss, then (a decoder) prefill's logits and one
+    decode step on the kernel path's token. Returns {what: (kernel path's
+    difference from the plain path, the plain path's largest magnitude, for
+    the loss at least 1)}."""
+    from repro_torch.scripts import smoke_models as smk
+    cfg = smk.smoke_config(kernel["arch"]).replace(use_pallas=False)
+    params = M.init_params(cfg, torch.Generator(device=DEV).manual_seed(0), DEV)
+    batch = smk.smoke_batch(cfg, DEV)
+    with torch.no_grad():
+        loss, _ = M.forward_train(cfg, params, batch)
+        # a cross-entropy's scale is at least 1 nat: mamba2's smoke loss is ~1e-8
+        gaps = {"loss": (abs(loss.item() - kernel["loss"]),
+                         max(abs(loss.item()), 1.0))}
+        if "decode_logits" in kernel:
+            logits, caches = M.prefill(cfg, params, {k: v for k, v in batch.items()
+                                                     if k != "labels"})
+            tok = torch.argmax(kernel["prefill_logits"], -1)[:, None].to(torch.int32)
+            logits2, _ = M.decode_step(cfg, params, tok, caches, smk.T - 1)
+            for what, got, want in (("prefill", kernel["prefill_logits"], logits),
+                                    ("decode", kernel["decode_logits"], logits2)):
+                gaps[what] = ((got - want).abs().max().item(),
+                              want.abs().max().item())
+    return gaps
+
+
+def entry_smoke_models() -> dict:
+    """(g) ``scripts.smoke_models.main`` on the card with use_pallas: every
+    arch ``ALL OK``; each kernel launches on the families that have it,
+    exactly (per arch: a layer of its kind per train forward and prefill,
+    rmsnorm per norm per pass, the decode step a pass too), and nowhere
+    else; then, off the counted path, each arch's loss and logits against
+    its plain path within TOL[float32] of the plain path's largest (the
+    smoke configs are float32)."""
+    from repro_torch.scripts import smoke_models as smk
+    per_arch = {}
+    inner = smk.smoke_arch
+
+    def counted(arch, *a, **kw):
+        before = launch_counts()
+        out = inner(arch, *a, **kw)
+        per_arch[arch] = {n: c - before[n] for n, c in launch_counts().items()}
+        return out
+
+    for k in MODEL_KERNELS.values():
+        k.launches = 0
+    smk.smoke_arch = counted
+    try:
+        results = captured("(g)", smk.main, device=str(DEV))
+    finally:
+        smk.smoke_arch = inner
+    launches = launch_counts()
+    for arch, got in per_arch.items():
+        cfg = smk.smoke_config(arch)
+        fwd = 2 if cfg.supports_decode else 1  # train forward, prefill
+        want = {n: c * (fwd + (n == "rmsnorm" and cfg.supports_decode))
+                for n, c in launches_per_prefill(cfg).items()}
+        if got != want:
+            raise AssertionError(f"(g) {arch} launched {got}, want {want}")
+    log(f"[entry] (g) {len(results)} archs ALL OK; launches per arch {per_arch}")
+    if len(results) != len(SERVED):
+        raise AssertionError(f"(g) {len(results)} archs ran")
+    gaps = {r["arch"]: smoke_plain_gaps(r) for r in results}
+    tol = TOL[torch.float32]
+    log(f"[entry] (g) kernel vs plain path (max abs diff / plain max abs, tol "
+        f"{tol:g} x the latter): " + "; ".join(
+            f"{arch} " + ", ".join(f"{w} {d:.3g}/{m:.3g}" for w, (d, m) in g.items())
+            for arch, g in gaps.items()))
+    bad = {arch: w for arch, g in gaps.items() for w, (d, m) in g.items()
+           if not d <= tol * m}
+    if bad:
+        raise AssertionError(f"(g) the kernel path differs from the plain path: "
+                             f"{bad}: {gaps}")
+    return {"losses": {r["arch"]: r["loss"] for r in results},
+            "launches_by_arch": per_arch, "launches": launches,
+            "plain_gaps": gaps}
+
+
+def phase_entry(served=None) -> dict:
+    """Phase 16: (a)-(c) and (f)-(g) here, with (d) and (e) from
+    ``served`` (run inside serve_model on qwen3-1.7b's weights)."""
+    t0 = time.perf_counter()
+    res = {"document_workflow": entry_document_workflow(),
+           "trace_diff": entry_trace_diff(), "obs_report": entry_obs_report(),
+           "train_lm": entry_train_lm(), "smoke_models": entry_smoke_models()}
+    res["wall_s"] = time.perf_counter() - t0 + (served or {}).get("wall_s", 0.0)
+    if served:
+        res.update({k: v for k, v in served.items() if k != "wall_s"})
+        res["served_wall_s"] = served["wall_s"]
+    log(f"[entry] phase 16 passed in {res['wall_s']:.1f} s")
+    return res
+
+
+def phase_entry_only() -> dict:
+    """``--only entry``: phase 16 alone, qwen3-1.7b loaded for (d) and (e)."""
+    cfg = get_config(ENTRY_ARCH).replace(use_pallas=True)
+    params, _ = make_params(cfg)
+    served = phase_entry_served(cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    return phase_entry(served)
+
+
 ONLY_PHASES = {"kernels": lambda: phase_kernels(), "ssd_scan": lambda: phase_ssd_scan(),
                "rglru_scan": lambda: phase_rglru_scan(),
                "rmsnorm": lambda: phase_rmsnorm(),
                "cold_scan": lambda: phase_cold_scan(),
                "tile_cost": lambda: phase_tile_cost(), "obs": phase_obs_only,
                "jobs": phase_jobs_only, "train": lambda: phase_train(),
-               "mesh": phase_mesh_only, "stream": phase_stream_only}
+               "mesh": phase_mesh_only, "stream": phase_stream_only,
+               "entry": phase_entry_only}
 
 
 def main():
@@ -3987,7 +4385,7 @@ def main():
 
 
 def main_phases(smi, ptxas, dryrun_proc, t_run, walls, timed):
-    """Phases 3-14 and the result lines of a full run."""
+    """Phases 3-16 and the result lines of a full run."""
     fa = timed("kernels", phase_kernels)
     ssd = timed("ssd_scan", phase_ssd_scan)
     rg = timed("rglru_scan", phase_rglru_scan)
@@ -4023,6 +4421,8 @@ def main_phases(smi, ptxas, dryrun_proc, t_run, walls, timed):
     dryrun = timed("mesh (c) wait", lambda: phase_dryrun(dryrun_proc))
     mesh_served = next(m for m in served if m["arch"] == MESH_ARCH)["mesh"]
     stream_served = next(m for m in served if m["arch"] == STREAM_ARCH)["stream"]
+    entry = timed("entry", lambda: phase_entry(
+        next(m for m in served if m["arch"] == ENTRY_ARCH)["entry"]))
 
     def model_launches(name):
         return sum(m["launches"][name] for m in served)
@@ -4031,8 +4431,9 @@ def main_phases(smi, ptxas, dryrun_proc, t_run, walls, timed):
         """Launches by main path: serving and batching of the served models,
         the traced serving (11 b) and the jobs phase (12) of qwen3-1.7b,
         training (13 a: none, the jnp path), the no_grad forward_train
-        of 13 (d), phase 14's meshed serving (a) and training (b), and
-        phase 15's streamed serving."""
+        of 13 (d), phase 14's meshed serving (a) and training (b),
+        phase 15's streamed serving, and phase 16's entry points (the
+        quickstart, federated serving, train_lm and smoke_models)."""
         return {"serving": model_launches(name),
                 "obs": obs_served["obs"]["launches"][name],
                 "jobs": obs_served["jobs"]["launches"][name],
@@ -4041,12 +4442,17 @@ def main_phases(smi, ptxas, dryrun_proc, t_run, walls, timed):
                     train["full"]["forward_kernels"]["launches"][name],
                 "mesh_serving": mesh_served["launches"][name],
                 "stream": stream_served["launches"][name],
-                "mesh_train": mesh_train["launches"][name]}
+                "mesh_train": mesh_train["launches"][name],
+                "entry": sum(entry[k]["launches"][name] for k in (
+                    "quickstart", "federated_serving", "train_lm",
+                    "smoke_models"))}
 
     cold_paths = {"sim": sim_launches, "adapt": adapt_launches,
                   "obs_sweep": obs_sweep["launches"],
                   "obs_profiler": obs_served["profiler"]["launches"],
-                  "obs_controller": obs_controller["launches"]}
+                  "obs_controller": obs_controller["launches"],
+                  "entry": sum(entry[k]["cold_scan_launches"] for k in (
+                      "document_workflow", "trace_diff", "obs_report"))}
 
     cs64, cs32 = cs["float64"], cs["float32"]
     kernels = [{
@@ -4133,7 +4539,7 @@ def main_phases(smi, ptxas, dryrun_proc, t_run, walls, timed):
     for m in served:
         log(json.dumps({"serving": {k: v for k, v in m.items()
                                     if k not in ("obs", "profiler", "jobs", "mesh",
-                                                 "stream")}}))
+                                                 "stream", "entry")}}))
     log(json.dumps({"stream": stream_served}, default=str))
     log(json.dumps({"mesh": {"serving": mesh_served, "train": mesh_train,
                              "dryrun": dryrun}}, default=str))
@@ -4143,6 +4549,7 @@ def main_phases(smi, ptxas, dryrun_proc, t_run, walls, timed):
                             "controller": obs_controller},
                     "jobs": obs_served["jobs"]}, default=str))
     log(json.dumps({"train": train}, default=str))
+    log(json.dumps({"entry": entry}, default=str))
     log(f"[wall] every phase passed in {time.perf_counter() - t_run:.1f} s: "
         + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()) + "; served "
         + ", ".join(f"{m['arch']} {m['wall_s']:.1f} s" for m in served))
