@@ -45,6 +45,7 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch import spanhook
 from repro_torch.core.faults import FaultSchedule, InjectedFault, RetryPolicy
 from repro_torch.core.platform import Platform, PlatformRegistry, PlatformWrapper
 from repro_torch.core.prefetch import Prefetcher
@@ -442,15 +443,23 @@ class DagDeployment:
                 if not state.spec.node(succ).prefetch:
                     continue
                 delay = self.timing.poke_delay(step.name, succ)
-
-                def cascade(succ=succ, delay=delay):
-                    if delay > 0:
-                        time.sleep(delay)
-                    self._poke(state, succ, delay_applied=delay)
-
-                self.registry.executor(step.platform).submit(cascade)
+                self.registry.executor(step.platform).submit(
+                    self._poke_later, state, succ, delay
+                )
         except BaseException as exc:  # surface poke-path bugs to the client
             state.fail(exc)
+
+    @staticmethod
+    def _stamp(state: _RunState) -> Optional[float]:
+        """A task's submission stamp for a traced request, else None: the
+        task's span records its executor queue wait as ``queued_s``."""
+        return time.perf_counter() if state.trace is not None else None
+
+    def _poke_later(self, state: _RunState, node: str, delay: float):
+        """An executor task: poke ``node`` after the edge's learned delay."""
+        if delay > 0:
+            time.sleep(delay)
+        self._poke(state, node, delay_applied=delay)
 
     # -- phase 2: payload (dataflow firing) ------------------------------------
     def _deliver(self, state: _RunState, pred: Optional[str], node: str, value):
@@ -476,7 +485,9 @@ class DagDeployment:
             state.payload_done[node].set()
         if fire:
             step = state.spec.node(node)
-            self.registry.executor(step.platform).submit(self._fire, state, node)
+            self.registry.executor(step.platform).submit(
+                self._fire, state, node, self._stamp(state)
+            )
 
     def _deliver_first(self, state: _RunState, pred: str, node: str):
         """A streamed edge's FIRST chunk landed: fire the node as soon as
@@ -494,17 +505,20 @@ class DagDeployment:
                 state.fired.add(node)
         if fire:
             step = state.spec.node(node)
-            self.registry.executor(step.platform).submit(self._fire, state, node)
+            self.registry.executor(step.platform).submit(
+                self._fire, state, node, self._stamp(state)
+            )
 
-    def _fire(self, state: _RunState, node: str):
+    def _fire(self, state: _RunState, node: str, t_sub: Optional[float] = None):
         if state.error is not None:
             return
         try:
-            self._run_node(state, node)
+            self._run_node(state, node, t_sub)
         except BaseException as exc:
             state.fail(exc)
 
-    def _transfer(self, state: _RunState, src: str, dst: str, value):
+    def _transfer(self, state: _RunState, src: str, dst: str, value,
+                  t_sub: Optional[float] = None):
         """Move one edge payload, then deliver it to the join buffer."""
         if state.error is not None:
             return
@@ -520,6 +534,8 @@ class DagDeployment:
                     t_start=t0,
                     attrs={"src": src, "dst": dst, "platform": dst_plat.name},
                 )
+                if t_sub is not None:
+                    span.attrs["queued_s"] = t0 - t_sub
             ctx = (
                 self.tracer.bind(span)
                 if self.tracer is not None and span is not None
@@ -704,6 +720,19 @@ class DagDeployment:
                 )
             return pool
 
+    def _under_bound_span(self, call):
+        """``call`` as a job for another thread, run there under the span
+        (the tracer's and ``spanhook``'s) bound where the job was made, as
+        a pre-fetch job runs under the poke span it was submitted from."""
+        span, at = self.tracer.current_span(), spanhook.bound()
+        trace, hook_span = at if at is not None else (None, None)
+
+        def job(*args):
+            with self.tracer.bind(span), spanhook.bind(trace, hook_span):
+                return call(*args)
+
+        return job
+
     def _call_handler(self, fn, payload, data):
         """One handler attempt, hedged when the policy asks for it: if the
         primary has not returned after ``hedge_after_s`` a duplicate is
@@ -715,14 +744,17 @@ class DagDeployment:
         if hedge_after is None:
             return fn.wrapper(payload, data)
         pool = self._hedge_pool(fn.platform.name)
-        primary = pool.submit(fn.wrapper, payload, data)
+        call = fn.wrapper
+        if self.tracer is not None:
+            call = self._under_bound_span(call)
+        primary = pool.submit(call, payload, data)
         try:
             return primary.result(timeout=hedge_after)
         except concurrent.futures.TimeoutError:
             pass
         with self._stats_lock:
             self.stats["hedges"] += 1
-        backup = pool.submit(fn.wrapper, payload, data)
+        backup = pool.submit(call, payload, data)
         done, _ = concurrent.futures.wait(
             {primary, backup}, return_when=concurrent.futures.FIRST_COMPLETED
         )
@@ -736,7 +768,7 @@ class DagDeployment:
                 self.stats["hedge_wins"] += 1
         return winner.result()
 
-    def _run_node(self, state: _RunState, node: str):
+    def _run_node(self, state: _RunState, node: str, t_sub: Optional[float] = None):
         spec = state.spec
         step = spec.node(node)
         fn = self._resolve_step(step)
@@ -758,6 +790,8 @@ class DagDeployment:
                     "poke_t": poke_t,
                 },
             )
+            if t_sub is not None:
+                node_span.attrs["queued_s"] = t_fire - t_sub
 
         # poke successors NOW (as early as possible; the learned controller
         # may delay, per edge). The cascade usually got there first — _poke
@@ -766,13 +800,9 @@ class DagDeployment:
             if not spec.node(succ).prefetch:
                 continue
             delay = self.timing.poke_delay(step.name, succ)
-
-            def do_poke(succ=succ, delay=delay):
-                if delay > 0:
-                    time.sleep(delay)
-                self._poke(state, succ, delay_applied=delay)
-
-            self.registry.executor(step.platform).submit(do_poke)
+            self.registry.executor(step.platform).submit(
+                self._poke_later, state, succ, delay
+            )
 
         # cold start (compile) — hidden iff this node was poked. The warm
         # and fetch windows here are the EXPOSED waits: the background work
@@ -896,7 +926,15 @@ class DagDeployment:
                 t_start=t0,
                 attrs={"node": node, "platform": step.platform},
             )
-        out, attempts = self._invoke(state, node, step, fn, payload, data, node_span)
+        call = (state, node, step, fn, payload, data, node_span)
+        if compute_span is None:
+            out, attempts = self._invoke(*call)
+        else:
+            # model code below the handler opens its spans under this one
+            with self.tracer.bind(compute_span), spanhook.bind(
+                state.trace, compute_span
+            ):
+                out, attempts = self._invoke(*call)
         t1 = time.perf_counter()
         dt = t1 - t0
         timeline["compute_s"] = dt
@@ -940,5 +978,5 @@ class DagDeployment:
             return
         for succ in succs:
             self.registry.executor(spec.node(succ).platform).submit(
-                self._transfer, state, node, succ, out
+                self._transfer, state, node, succ, out, self._stamp(state)
             )

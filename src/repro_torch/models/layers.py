@@ -20,6 +20,7 @@ ops, which is what the kernel's rounding follows.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Optional
 
@@ -99,13 +100,19 @@ def gated_rmsnorm(y, z, w, eps=1e-6, use_kernel=False):
     return rmsnorm_plain(y * F.silu(z), w, eps)
 
 
-def rope(x, positions, theta):
-    """x: (..., T, n, d) rotated pairwise; positions: (..., T)."""
+def rope(x, positions, theta, host=None):
+    """x: (..., T, n, d) rotated pairwise; positions: (..., T). ``host``: an
+    open ``dispatch`` span (``spanhook``), whose ``sync_s`` gets the host
+    seconds of the copy of ``theta`` to the card, a copy from pageable
+    host memory that waits for the stream to drain."""
     d = x.shape[-1]
     half = d // 2
     exponent = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
-    freq = torch.pow(torch.tensor(theta, dtype=torch.float32, device=x.device),
-                     exponent)
+    t0 = time.perf_counter() if host is not None else 0.0
+    base = torch.tensor(theta, dtype=torch.float32, device=x.device)
+    if host is not None:
+        host.attrs["sync_s"] += time.perf_counter() - t0
+    freq = torch.pow(base, exponent)
     ang = positions[..., None].float() * freq  # (..., T, half)
     cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
     x1, x2 = x[..., :half], x[..., half:]
@@ -204,8 +211,9 @@ def _sdpa_chunked(cfg, q, k, v, q_pos, k_pos, window, causal, chunk):
 
 
 def attention(cfg, bc: BlockCfg, p, x, positions, mode, cache=None,
-              cur_index=None):
-    """Returns (out, new_cache).
+              cur_index=None, host=None):
+    """Returns (out, new_cache). ``host``: an open ``dispatch`` span, passed
+    to ``rope``.
 
     prefill: cache returned is (k, v) over the full sequence, or a ring
     buffer of size `window` for local layers.
@@ -220,8 +228,8 @@ def attention(cfg, bc: BlockCfg, p, x, positions, mode, cache=None,
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], use_kernel=cfg.use_pallas)
         k = rmsnorm(k, p["k_norm"], use_kernel=cfg.use_pallas)
-    q = rope(q, positions, bc.theta)
-    k = rope(k, positions, bc.theta)
+    q = rope(q, positions, bc.theta, host)
+    k = rope(k, positions, bc.theta, host)
     q = shard(q, "batch", "attn_seq", "act_heads", None)
     k = shard(k, "batch", None, "act_kv", None)
     v = shard(v, "batch", None, "act_kv", None)

@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import spanhook
 from repro_torch.core.prewarm import TensorSpec
 from repro_torch.dist import sharding as shd
 from repro_torch.models import params as prm
@@ -119,7 +120,26 @@ def prefill(cfg, params, batch):
     the prompt length; serving pads to the generation budget
     (serving/engine.pad_cache). ``cast_params`` is free when the params are
     already cast (the serving engine casts once).
+
+    Where the calling thread has a span bound (``spanhook``: the engine's
+    ``compute`` span of a step), the call is a child span ``dispatch:prefill``
+    of kind ``dispatch``, from entry to return: every launch enqueued, no
+    result read back. Its attributes: ``attention_s`` (host seconds inside
+    the attention sublayers, summed over the layers), ``sync_s`` (the part
+    of it spent in rope's synchronising copies, ``layers.rope``: waiting
+    for the card to drain the stream) and ``spanhook``'s ``cpu_s``.
     """
+    span = spanhook.begin("dispatch:prefill", "dispatch")
+    if span is None:
+        return _prefill(cfg, params, batch)
+    span.attrs.update(attention_s=0.0, sync_s=0.0)
+    try:
+        return _prefill(cfg, params, batch)
+    finally:
+        spanhook.end(span)
+
+
+def _prefill(cfg, params, batch):
     p = tfm.cast_params(cfg, params)
     x = tfm.embed_inputs(cfg, p, batch)
     T = x.shape[1]

@@ -12,12 +12,14 @@ layers (``num_layers % pattern``) run unstacked.
 from __future__ import annotations
 
 import functools
+import time
 from dataclasses import dataclass
 
 import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                      create_selective_checkpoint_contexts)
 
+from repro_torch import spanhook
 from repro_torch.dist.sharding import fsdp_gather, shard, vocab_rows
 from repro_torch.models.griffin import rglru_block, rglru_cache_specs, rglru_defs
 from repro_torch.models.layers import (add_rmsnorm, attention, attn_cache_shape,
@@ -87,10 +89,12 @@ def add_norm(cfg, x, h, w):
 
 
 def block_deferred(cfg, kind, p, x, positions, mode, cache=None, cur_index=None,
-                   delta=None):
+                   delta=None, host=None):
     """One block whose input is ``x + delta`` and whose last residual add
     is left pending. Returns (x, delta, new_cache, aux_loss): the block's
-    output is ``x + delta``."""
+    output is ``x + delta``. ``host``: an open ``dispatch`` span, whose
+    ``attention_s`` gets the host seconds of the attention call (and
+    ``sync_s`` those of its rope copies, ``layers.rope``)."""
     bc = block_cfg_for(cfg, kind)
     if bc.kind == "ssd":
         x, u = add_norm(cfg, x, delta, p["mixer"]["norm"])
@@ -98,8 +102,11 @@ def block_deferred(cfg, kind, p, x, positions, mode, cache=None, cur_index=None,
     else:
         x, u = add_norm(cfg, x, delta, p["norm1"])
         if bc.kind == "attn":
+            t0 = time.perf_counter() if host is not None else 0.0
             h, c = attention(cfg, bc, p["mixer"], u, positions, mode, cache,
-                             cur_index)
+                             cur_index, host)
+            if host is not None:
+                host.attrs["attention_s"] += time.perf_counter() - t0
         else:
             h, c = rglru_block(cfg, p["mixer"], u, mode, cache, cfg.use_pallas)
     aux = 0.0
@@ -160,7 +167,14 @@ def run_blocks(cfg, params, x, positions, mode, caches=None, cur_index=None):
     Decode writes each layer's new KV (or conv window and recurrent state)
     into its slice of the stacked cache in place, so the returned caches
     are the ones passed in.
+
+    While the calling thread has a ``dispatch`` span open (``spanhook``, a
+    traced ``prefill``), each attention call's host seconds add to its
+    ``attention_s``.
     """
+    host = spanhook.current()
+    if host is not None and host.kind != "dispatch":
+        host = None  # a bound span other than a traced prefill's: not stamped
     pattern = cfg.block_pattern
     n_cyc = cfg.num_layers // len(pattern)
     blocks_p = params["blocks"]
@@ -181,7 +195,7 @@ def run_blocks(cfg, params, x, positions, mode, caches=None, cur_index=None):
                 cj = None if c_i is None else c_i[f"p{j}"]
                 x, delta, cj_new, aux = block_deferred(
                     cfg, kind, p_i[f"p{j}"], x, positions, mode, cj, cur_index,
-                    delta)
+                    delta, host)
                 new_c[f"p{j}"] = cj_new
                 aux_c = aux_c + aux
             return x, delta, new_c, aux_c
@@ -211,7 +225,7 @@ def run_blocks(cfg, params, x, positions, mode, caches=None, cur_index=None):
         ci = None if caches is None else caches.get(f"rem{i}")
         x, delta, c_new, aux = block_deferred(
             cfg, kind, tree_map(fsdp_gather, blocks_p[f"rem{i}"]), x, positions,
-            mode, ci, cur_index, delta)
+            mode, ci, cur_index, delta, host)
         if mode != "train":
             new_caches[f"rem{i}"] = c_new
         aux_total = aux_total + aux

@@ -41,7 +41,7 @@ PROMPT, DECODE, MAX_LEN = 20, 4, 28
 
 
 def _old_block(cfg, kind, p, x, positions, mode, cache=None, cur_index=None,
-               delta=None):
+               delta=None, host=None):
     """A block as the kernel path ran it before the adds were deferred: the
     input norm a call of its own (inside ssd_block for mamba2), then
     ``x = x + h``, the second norm, ``x = x + f``. Returns the
