@@ -34,7 +34,11 @@ no result):
               shapes (1 and 4 rows of 1024, 1536, 2048, 4096 and qwen3's
               4-slot qk-norm, 64 x 128); then the widths of the models
               served since (1280-7168) at prefill and decode, and gemma3's
-              and qwen3-32b's qk-norm rows
+              and qwen3-32b's qk-norm rows; rope_qk bit for bit against the
+              plain rope at every served attention shape and theta
+              (prefill and 4-slot decode, bf16 and float32, off the vector
+              path), and at qwen3-32b's prefill shape (T 1536) timed
+              beside the plain rope's two calls and the bound
   Phases 4-7 run for the ten configs in turn (SERVED: qwen3-1.7b,
   mamba2-370m, recurrentgemma-9b, granite-moe-3b-a800m, llama3.2-3b,
   gemma3-27b, qwen3-32b, moonshot-v1-16b-a3b, llava-next-34b,
@@ -55,8 +59,11 @@ no result):
               batching of token prompts;
               every kernel counter is set to 0 before phase 4 and read
               after phase 5: each kernel launches once per layer of its
-              block kind per prefill, and rmsnorm once per norm per forward
-              pass (prefill or decode step), exactly
+              block kind per prefill, rmsnorm once per norm and rope once
+              per attention layer per forward pass (prefill or decode
+              step), exactly; for qwen3-32b, one prefill under
+              torch.cuda.set_sync_debug_mode("warn"), its synchronising
+              calls counted by line ([sync])
   6. checks   for granite, the MoE routing: (token, choice) routings that
               differ between kernel and plain path, and the choices one
               4-slot decode step drops; kernel-path against plain-path
@@ -201,7 +208,7 @@ Then one JSON line describing every kernel (launches counted over the main
 paths: serving and batching of the ten models, phases 11 (b) and 12,
 training and 13 (d)'s forward, phase 14's meshed serving and training,
 phase 15's streamed serving and phase 16's entry points for
-flash_attention, ssd_scan, rglru_scan and rmsnorm; the simulator, the
+flash_attention, ssd_scan, rglru_scan, rmsnorm and rope; the simulator, the
 recomposition, phase 11's (a, c, d) and phase 16's (a, c) for cold_scan),
 the card's name and power limit, and the last line {"ok": true, "device":
 {...}}.
@@ -209,7 +216,7 @@ the card's name and power limit, and the last line {"ok": true, "device":
     python3 chip_smoke.py --only kernels,ssd_scan
 
 runs phases 1-2 and the named ones of kernels, ssd_scan, rglru_scan,
-rmsnorm, cold_scan, obs, jobs, train, mesh, stream and entry only (a short
+rmsnorm, rope, cold_scan, obs, jobs, train, mesh, stream and entry only (a short
 call to bring up a kernel or a phase), prints their results and no final
 line. ``--only tile_cost``
 times one kv tile of the wgmma flash kernel at d = 64, 128, 256, a
@@ -229,6 +236,7 @@ import subprocess
 import sys
 import threading
 import time
+import warnings
 from dataclasses import replace
 from types import SimpleNamespace
 
@@ -265,6 +273,7 @@ from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_plain  # noqa:
 from repro_torch.kernels.rmsnorm import (  # noqa: E402
     add_rmsnorm, add_rmsnorm_plain, gated_rmsnorm, gated_rmsnorm_plain, rmsnorm,
     rmsnorm_plain)
+from repro_torch.kernels.rope import rope_qk  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain  # noqa: E402
 from repro_torch.models import griffin as GRIFFIN  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
@@ -296,7 +305,8 @@ ENCODER_FRAMES = 512  # hubert-xlarge: frames of a request (a ~10 s clip)
 INIT_SLACK = 1e9  # the init peak's allowance beyond its two named parts
 BATCH_PROMPTS = (256, 512)  # continuous batching: prompt lengths drawn here
 KERNELS = ("flash_attention", "flash_attention_mma", "flash_attention_f32",
-           "cold_scan", "ssd_scan", "rglru_scan", "rmsnorm")  # one nvcc each
+           "cold_scan", "ssd_scan", "rglru_scan", "rmsnorm",
+           "rope")  # one nvcc each
 SIM_SEEDS = 16  # the full-size sweep: 16 seeds x 256 placements x 4096 requests
 SIM_REQUESTS = 4096
 COLD_SCAN_FULL = (4096, 4096)  # (B, T) of one node of that sweep
@@ -1013,6 +1023,88 @@ def phase_rmsnorm() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3d: rope (q and k in one launch)
+# ---------------------------------------------------------------------------
+def rope_cases():
+    """(name, B, T, H, K, d, thetas, start): every served attention shape
+    (H, K, d) with each of its thetas at a 512-token prefill and a 4-slot
+    decode step at position 3000, and two shapes off the vector path (d /
+    2 not a whole number of 16-byte units)."""
+    shapes = {}
+    for arch in SERVED:
+        cfg = get_config(arch)
+        if cfg.num_heads:
+            shapes.setdefault((cfg.num_heads, cfg.num_kv_heads, cfg.head_dim),
+                              set()).update({cfg.rope_theta, cfg.rope_theta_global}
+                                            - {0.0})
+    cases = [(f"(H {H}, K {K}, d {d})", B, T, H, K, d, sorted(th), start)
+             for (H, K, d), th in sorted(shapes.items())
+             for B, T, start in ((1, 512, 0), (4, 1, 3000))]
+    return cases + [("(d 18)", 2, 33, 4, 2, 18, [1e4], 0),
+                    ("(d 36)", 1, 100, 3, 1, 36, [5e5], 5)]
+
+
+def rope_case(g, name, B, T, H, K, d, thetas, start, dtype, offset=0) -> int:
+    """rope_qk against two ``L.rope`` calls, bit for bit, positions (T,)
+    int32 and (B, T) int64; ``offset`` elements before q and k take them
+    off 16-byte alignment. Returns the number of differing elements."""
+    def tensor(n):
+        flat = torch.randn(B * T * n * d + offset, generator=g, device=DEV).to(dtype)
+        return flat[offset:].view(B, T, n, d)
+    q, k = tensor(H), tensor(K)
+    bad = 0
+    pos1 = torch.arange(start, start + T, dtype=torch.int32, device=DEV)
+    pos2 = (pos1[None].long() + 7 * torch.arange(B, device=DEV)[:, None]).contiguous()
+    for theta in thetas:
+        for pos in (pos1, pos2):
+            gq, gk = rope_qk(q, k, pos, theta)
+            for got, want in ((gq, L.rope(q, pos, theta)), (gk, L.rope(k, pos, theta))):
+                bad += int((got.view(torch.int16 if dtype == torch.bfloat16 else
+                                     torch.int32)
+                            != want.view(torch.int16 if dtype == torch.bfloat16 else
+                                         torch.int32)).sum())
+    sync()
+    log(f"[rope] {name}: B {B} T {T} from {start} {str(dtype)[6:]}"
+        f"{' (16-byte misaligned)' if offset else ''}, thetas {thetas}: "
+        f"{bad} elements differ {'ok' if not bad else 'FAIL'}")
+    if bad:
+        fail(f"rope {name} {dtype} differs from the plain rope in {bad} elements")
+    return bad
+
+
+def phase_rope() -> dict:
+    """rope_qk: bit for bit against the plain rope (``L.rope`` on q and on
+    k) at every served attention shape and theta, prefill and decode, bf16
+    and float32, and off the vector path (misaligned, d/2 not a whole
+    number of units); then qwen3-32b's prefill shape (T 1536, 64 + 8 heads
+    of 128, bf16) timed beside its bound and the plain version's two calls
+    (whose time includes its drains: each copy of theta waits for the
+    stream)."""
+    g = torch.Generator(device=DEV).manual_seed(41)
+    bad = 0
+    for args in rope_cases():
+        for dtype in (torch.bfloat16, torch.float32):
+            bad += rope_case(g, *args, dtype)
+    bad += rope_case(g, "(misaligned)", 2, 64, 16, 8, 128, [1e6], 0, torch.bfloat16,
+                     offset=1)
+    B, T, H, K, d, theta = 1, 1536, 64, 8, 128, 1e6
+    q = torch.randn(B, T, H, d, generator=g, device=DEV).to(torch.bfloat16)
+    k = torch.randn(B, T, K, d, generator=g, device=DEV).to(torch.bfloat16)
+    pos = torch.arange(T, dtype=torch.int32, device=DEV)
+    ms = device_ms(lambda: rope_qk(q, k, pos, theta))
+    plain_ms = device_ms(lambda: (L.rope(q, pos, theta), L.rope(k, pos, theta)),
+                         reps=10)
+    nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
+    bound = nbytes / HBM_BPS * 1e3
+    log(f"[rope] qwen3-32b prefill q {tuple(q.shape)} k {tuple(k.shape)} bf16: kernel "
+        f"{ms * 1e3:.2f} us, bound {bound * 1e3:.2f} us ({nbytes / 1e6:.1f} MB, "
+        f"{bound / ms:.1%} of it), plain {plain_ms * 1e3:.2f} us")
+    return {"shape": [B, T, H, K, d], "dtype": "bfloat16", "elements_differ": bad,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
+            "library_ms": None}
+
+
+# ---------------------------------------------------------------------------
 # phase 4: federated prefill -> decode at full width
 # ---------------------------------------------------------------------------
 def init_bounds(cfg) -> tuple:
@@ -1625,7 +1717,7 @@ def _profiled(fn):
 
 
 PORT_KERNEL = re.compile(r"flash_fwd|ssd_cb|ssd_scan_kernel|"
-                         r"rglru_scan|rmsnorm|cold_scan")
+                         r"rglru_scan|rmsnorm|cold_scan|rope_qk")
 
 
 def phase_profile(cfg, params, batch):
@@ -2367,7 +2459,7 @@ def serving_launch_gate(cfg, passes, what) -> dict:
     per_prefill, got = launches_per_prefill(cfg), launch_counts()
     n_pass = passes["prefill"] + passes["decode"]
     for name, want in per_prefill.items():
-        n = want * (n_pass if name == "rmsnorm" else passes["prefill"])
+        n = want * (n_pass if name in PER_PASS else passes["prefill"])
         if got[name] != n:
             raise AssertionError(f"{what}: {got[name]} {name} launches != {n} "
                                  f"(forward passes {passes})")
@@ -2690,7 +2782,8 @@ def phase_jobs(cfg, params) -> dict:
 # the serving paths of the served models
 # ---------------------------------------------------------------------------
 MODEL_KERNELS = {"flash_attention": flash_attention, "ssd_scan": ssd_scan,
-                 "rglru_scan": rglru_scan, "rmsnorm": rmsnorm}
+                 "rglru_scan": rglru_scan, "rmsnorm": rmsnorm, "rope": rope_qk}
+PER_PASS = ("rmsnorm", "rope")  # launched by every forward pass, decode steps too
 SERVED = ("qwen3-1.7b", "mamba2-370m", "recurrentgemma-9b", "granite-moe-3b-a800m",
           "llama3.2-3b", "gemma3-27b", "qwen3-32b", "moonshot-v1-16b-a3b",
           "llava-next-34b", "hubert-xlarge")
@@ -2700,16 +2793,18 @@ WINDOW_DECODE = 8
 
 
 def launches_per_prefill(cfg) -> dict:
-    """One launch per layer of the kernel's block kind; rmsnorm once per
-    norm: norm1 (attention and rglru blocks), q_norm and k_norm (qk_norm),
-    the ssd block's norm and norm_y, norm2 (where d_ff), the final norm. A
-    decode step launches rmsnorm as often as a prefill, and nothing else."""
+    """One launch per layer of the kernel's block kind (rope: q and k of an
+    attention layer in one); rmsnorm once per norm: norm1 (attention and
+    rglru blocks), q_norm and k_norm (qk_norm), the ssd block's norm and
+    norm_y, norm2 (where d_ff), the final norm. A decode step launches
+    rmsnorm and rope (``PER_PASS``) as often as a prefill, and nothing
+    else."""
     kinds = cfg.layer_kinds()
     attn = sum(k in ("global", "local") for k in kinds)
     norms = (attn * (1 + 2 * bool(cfg.qk_norm)) + kinds.count("rglru")
              + 2 * kinds.count("ssd") + bool(cfg.d_ff) * len(kinds) + 1)
     return {"flash_attention": attn, "ssd_scan": kinds.count("ssd"),
-            "rglru_scan": kinds.count("rglru"), "rmsnorm": norms}
+            "rglru_scan": kinds.count("rglru"), "rmsnorm": norms, "rope": attn}
 
 
 def launch_counts() -> dict:
@@ -2885,7 +2980,8 @@ def check_launches(arch, per_prefill, fed, total, passes, fed_passes, n_prompts,
                    n_batched):
     """Exact kernel launches over the federated requests (``fed``) and then
     the batching (``total``): one per layer of a kernel's block kind per
-    prefill, rmsnorm once per norm per forward pass."""
+    prefill, rmsnorm once per norm and rope once per attention layer per
+    forward pass."""
     n_pass = passes["prefill"] + passes["decode"]
     log(f"[serving] {arch} launches per prefill {per_prefill}: federated {fed} "
         f"over {n_prompts} prefills; batching "
@@ -2895,9 +2991,9 @@ def check_launches(arch, per_prefill, fed, total, passes, fed_passes, n_prompts,
         raise AssertionError(f"{arch}: {passes['prefill']} prefills counted, "
                              f"{n_prompts + n_batched} made")
     for n, want in per_prefill.items():
-        if n == "rmsnorm":  # every forward pass, prefill or decode
+        if n in PER_PASS:  # every forward pass, prefill or decode
             if total[n] != want * n_pass:
-                raise AssertionError(f"{arch}: {total[n]} rmsnorm launches != "
+                raise AssertionError(f"{arch}: {total[n]} {n} launches != "
                                      f"{want} per pass over {n_pass} passes")
             continue
         if fed[n] != want * n_prompts:
@@ -2906,6 +3002,35 @@ def check_launches(arch, per_prefill, fed, total, passes, fed_passes, n_prompts,
         if total[n] - fed[n] != want * n_batched:
             raise AssertionError(f"{arch}: batched prefills did not each launch "
                                  f"{n} {want} times")
+
+
+SYNC_ARCH = "qwen3-32b"  # the benchmark's model: one prefill under sync debug
+
+
+def phase_sync_debug(cfg, params, prompt) -> dict:
+    """One prefill under ``torch.cuda.set_sync_debug_mode("warn")``: every
+    synchronising call inside its dispatch, counted by the line that made
+    it (the card drained first, and again after the mode is off)."""
+    batch = model_batch(cfg, prompt, 0)
+    sync()
+    with warnings.catch_warnings(record=True) as seen, torch.no_grad():
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            M.prefill(cfg, params, batch)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    sync()
+    calls = {}
+    for w in seen:  # the mode's own notice that it is a prototype is not a call
+        msg = str(w.message)
+        if "synchroniz" in msg and "prototype" not in msg:
+            where = f"{os.path.relpath(w.filename)}:{w.lineno}"
+            calls[where] = calls.get(where, 0) + 1
+    log(f"[sync] {cfg.name} prefill of {len(prompt)} tokens under sync debug: "
+        f"{sum(calls.values())} synchronising calls"
+        + "".join(f"; {n} at {where}" for where, n in sorted(calls.items())))
+    return {"tokens": len(prompt), "calls": calls}
 
 
 def serve_model(arch) -> dict:
@@ -2967,6 +3092,8 @@ def serve_model(arch) -> dict:
     if arch == ENTRY_ARCH:
         extra["entry"] = phase_entry_served(cfg, params)
         memory_mark(memory, "entry")
+    if arch == SYNC_ARCH:
+        extra["sync_debug"] = phase_sync_debug(cfg, params, prompts[0])
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -3223,7 +3350,8 @@ def train_kernels_forward(cfg, params, batch) -> dict:
              "gated_rmsnorm": lambda t: gated_rmsnorm(x, t, w),
              "ssd_scan": lambda t: ssd_scan(t, dt, torch.zeros(2, device=DEV), bm, bm,
                                             64),
-             "rglru_scan": lambda t: rglru_scan(la, t)}
+             "rglru_scan": lambda t: rglru_scan(la, t),
+             "rope": lambda t: rope_qk(t, x, torch.arange(64, device=DEV), 1e6)}
     args = {"rglru_scan": la.clone()}
     refused = []
     for name, call in calls.items():
@@ -4110,7 +4238,7 @@ def entry_counted(tag, cfg, fn, *a, **kw):
         res = captured(tag, fn, *a, **kw)
         launches = launch_counts()
     n = passes.n
-    want = {name: c * (n["prefill"] + (n["decode"] if name == "rmsnorm" else 0))
+    want = {name: c * (n["prefill"] + (n["decode"] if name in PER_PASS else 0))
             for name, c in per.items()}
     log(f"[entry] {tag} launches {launches} over passes {n} (want {want})")
     if launches != want:
@@ -4288,7 +4416,7 @@ def entry_smoke_models() -> dict:
     for arch, got in per_arch.items():
         cfg = smk.smoke_config(arch)
         fwd = 2 if cfg.supports_decode else 1  # train forward, prefill
-        want = {n: c * (fwd + (n == "rmsnorm" and cfg.supports_decode))
+        want = {n: c * (fwd + (n in PER_PASS and cfg.supports_decode))
                 for n, c in launches_per_prefill(cfg).items()}
         if got != want:
             raise AssertionError(f"(g) {arch} launched {got}, want {want}")
@@ -4338,7 +4466,7 @@ def phase_entry_only() -> dict:
 
 ONLY_PHASES = {"kernels": lambda: phase_kernels(), "ssd_scan": lambda: phase_ssd_scan(),
                "rglru_scan": lambda: phase_rglru_scan(),
-               "rmsnorm": lambda: phase_rmsnorm(),
+               "rmsnorm": lambda: phase_rmsnorm(), "rope": lambda: phase_rope(),
                "cold_scan": lambda: phase_cold_scan(),
                "tile_cost": lambda: phase_tile_cost(), "obs": phase_obs_only,
                "jobs": phase_jobs_only, "train": lambda: phase_train(),
@@ -4391,6 +4519,7 @@ def main_phases(smi, ptxas, dryrun_proc, t_run, walls, timed):
     rg = timed("rglru_scan", phase_rglru_scan)
     cs = timed("cold_scan", phase_cold_scan)
     rn = timed("rmsnorm", phase_rmsnorm)
+    rp = timed("rope", phase_rope)
     served = timed("serving", lambda: [serve_model(arch) for arch in SERVED])
     t_rest = time.perf_counter()
 
@@ -4535,6 +4664,14 @@ def main_phases(smi, ptxas, dryrun_proc, t_run, walls, timed):
                                                 "bound_by", "library_ms")}
                           for k, r in by.items()}
                    for arch, by in rn["shapes"].items()},
+    }, {
+        "name": "rope", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rope.cu",
+        "replaces": None,
+        "launches": sum(served_launches("rope").values()),
+        "launches_by_path": served_launches("rope"),
+        "launches_by_model": {m["arch"]: m["launches"]["rope"] for m in served},
+        **rp, "ptxas": ptxas["rope"],
     }]
     for m in served:
         log(json.dumps({"serving": {k: v for k, v in m.items()

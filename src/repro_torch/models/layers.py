@@ -11,7 +11,9 @@ The dtype plan is the JAX package's: rmsnorm and rope in f32 and cast back,
 attention scores and softmax in f32 with p cast to v's dtype before PV,
 masks at -1e30. Prefill attention with ``cfg.use_pallas`` goes to the
 hand-written kernel (``repro_torch.kernels.flash_attention``); decode keeps
-``_sdpa``, as the JAX package does. With ``cfg.use_pallas`` every norm runs
+``_sdpa``, as the JAX package does. With ``cfg.use_pallas`` rope rotates q
+and k in one launch of a hand-written kernel (``repro_torch.kernels.rope``)
+in every mode, where the JAX package's rope is jnp; with it every norm runs
 the hand-written rmsnorm kernel (``repro_torch.kernels.rmsnorm``), where the
 JAX package's ``layers.rmsnorm`` stays jnp: the same function. On that path
 ``add_rmsnorm`` and ``gated_rmsnorm`` take the residual add or the SiLU gate
@@ -20,7 +22,6 @@ ops, which is what the kernel's rounding follows.
 """
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 from typing import Optional
 
@@ -36,6 +37,8 @@ from repro_torch.kernels.rmsnorm import add_rmsnorm as add_rmsnorm_kernel
 from repro_torch.kernels.rmsnorm import gated_rmsnorm as gated_rmsnorm_kernel
 from repro_torch.kernels.rmsnorm import rmsnorm as rmsnorm_kernel
 from repro_torch.kernels.rmsnorm import rmsnorm_plain
+from repro_torch.kernels.rope import rope_plain as rope
+from repro_torch.kernels.rope import rope_qk
 from repro_torch.models.params import ParamDef
 
 NEG_INF = -1e30
@@ -73,7 +76,7 @@ def promote(*ts):
 
 
 # ---------------------------------------------------------------------------
-# norms / rope
+# norms (rope: ``kernels.rope``)
 # ---------------------------------------------------------------------------
 def rmsnorm(x, w, eps=1e-6, use_kernel=False):
     """f32 statistics, cast back to x's dtype; ``use_kernel`` (the callers
@@ -98,26 +101,6 @@ def gated_rmsnorm(y, z, w, eps=1e-6, use_kernel=False):
     if use_kernel:
         return gated_rmsnorm_kernel(y, z, w, eps)
     return rmsnorm_plain(y * F.silu(z), w, eps)
-
-
-def rope(x, positions, theta, host=None):
-    """x: (..., T, n, d) rotated pairwise; positions: (..., T). ``host``: an
-    open ``dispatch`` span (``spanhook``), whose ``sync_s`` gets the host
-    seconds of the copy of ``theta`` to the card, a copy from pageable
-    host memory that waits for the stream to drain."""
-    d = x.shape[-1]
-    half = d // 2
-    exponent = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
-    t0 = time.perf_counter() if host is not None else 0.0
-    base = torch.tensor(theta, dtype=torch.float32, device=x.device)
-    if host is not None:
-        host.attrs["sync_s"] += time.perf_counter() - t0
-    freq = torch.pow(base, exponent)
-    ang = positions[..., None].float() * freq  # (..., T, half)
-    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
-    x1, x2 = x[..., :half], x[..., half:]
-    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-    return out.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -212,8 +195,9 @@ def _sdpa_chunked(cfg, q, k, v, q_pos, k_pos, window, causal, chunk):
 
 def attention(cfg, bc: BlockCfg, p, x, positions, mode, cache=None,
               cur_index=None, host=None):
-    """Returns (out, new_cache). ``host``: an open ``dispatch`` span, passed
-    to ``rope``.
+    """Returns (out, new_cache). With ``cfg.use_pallas`` q and k are
+    rotated in one launch (``rope_qk``); else by two ``rope`` calls, which
+    get ``host``, an open ``dispatch`` span.
 
     prefill: cache returned is (k, v) over the full sequence, or a ring
     buffer of size `window` for local layers.
@@ -228,8 +212,11 @@ def attention(cfg, bc: BlockCfg, p, x, positions, mode, cache=None,
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], use_kernel=cfg.use_pallas)
         k = rmsnorm(k, p["k_norm"], use_kernel=cfg.use_pallas)
-    q = rope(q, positions, bc.theta, host)
-    k = rope(k, positions, bc.theta, host)
+    if cfg.use_pallas:
+        q, k = rope_qk(q, k, positions, bc.theta)
+    else:
+        q = rope(q, positions, bc.theta, host)
+        k = rope(k, positions, bc.theta, host)
     q = shard(q, "batch", "attn_seq", "act_heads", None)
     k = shard(k, "batch", None, "act_kv", None)
     v = shard(v, "batch", None, "act_kv", None)

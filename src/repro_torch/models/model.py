@@ -126,8 +126,9 @@ def prefill(cfg, params, batch):
     of kind ``dispatch``, from entry to return: every launch enqueued, no
     result read back. Its attributes: ``attention_s`` (host seconds inside
     the attention sublayers, summed over the layers), ``sync_s`` (the part
-    of it spent in rope's synchronising copies, ``layers.rope``: waiting
-    for the card to drain the stream) and ``spanhook``'s ``cpu_s``.
+    of it spent in the plain rope's synchronising copies, ``layers.rope``:
+    waiting for the card to drain the stream; 0.0 with ``cfg.use_pallas``,
+    whose ``rope_qk`` copies nothing) and ``spanhook``'s ``cpu_s``.
     """
     span = spanhook.begin("dispatch:prefill", "dispatch")
     if span is None:

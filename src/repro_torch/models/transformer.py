@@ -94,7 +94,8 @@ def block_deferred(cfg, kind, p, x, positions, mode, cache=None, cur_index=None,
     is left pending. Returns (x, delta, new_cache, aux_loss): the block's
     output is ``x + delta``. ``host``: an open ``dispatch`` span, whose
     ``attention_s`` gets the host seconds of the attention call (and
-    ``sync_s`` those of its rope copies, ``layers.rope``)."""
+    ``sync_s`` those of the plain rope's copies, ``layers.rope``; none
+    with ``cfg.use_pallas``, where ``rope_qk`` copies nothing)."""
     bc = block_cfg_for(cfg, kind)
     if bc.kind == "ssd":
         x, u = add_norm(cfg, x, delta, p["mixer"]["norm"])
