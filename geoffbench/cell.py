@@ -23,7 +23,7 @@ from typing import Optional
 
 import torch
 
-from geoffbench import check, reference, spec, traffic, weights
+from geoffbench import check, spec, traffic, weights
 from geoffbench.trace import DeviceTrace
 
 DOC_REGION = "doc-region"
@@ -71,6 +71,7 @@ class Cell:
         self.name = workload_name
         self.entry = spec.workload(bench, workload_name)
         self.conf = spec.config(bench, self.entry["config"])
+        self.model = spec.model(self.conf)
         self.arch = dict(self.conf["port"] if arch is None else arch)
         self.mix = spec.traffic(self.entry["traffic"]) if mix is None else mix
         self.eps = float(self.conf["port_norm_eps"])
@@ -93,13 +94,14 @@ class Cell:
         a = dict(self.arch)
         a["block_pattern"] = tuple(a["block_pattern"])
         self.cfg = ArchConfig(**a)
-        self.params = weights.make(self.arch, seed, self.device, into=self.params)
+        layout = self.model.layout(self.arch)
+        self.params = weights.make(layout, seed, self.device, into=self.params)
         want = {}
         tree_map_with_path(
             lambda p, d: want.__setitem__("/".join(re.findall(r"\['([^']*)'\]", p)),
                                           tuple(d.shape)),
             M.param_defs(self.cfg), is_leaf=lambda x: hasattr(x, "axes"))
-        got = {p: tuple(s) for p, (s, _) in weights.layout(self.arch).items()}
+        got = {p: tuple(e[0]) for p, e in layout.items()}
         if want != got:
             raise RuntimeError(f"the program's parameters {want} are not the "
                                f"benchmark's layout {got}")
@@ -317,7 +319,7 @@ class Cell:
         picked = check.sample([r.req for r in done], self.mix["check"]["sample"], seed)
         by_index = {r.req.index: r for r in done}
         inputs = self.inputs(picked, seed)
-        ref = reference.last_logits(self.arch, self.params, inputs, "float32", self.eps)
+        ref = self.model.last_logits(self.arch, self.params, inputs, "float32", self.eps)
         served = [by_index[r.index].out for r in picked]
         numbers = {"failed": failed, "misrouted": misrouted}
         numbers.update(check.compared([o["label"] for o in served],
@@ -325,7 +327,7 @@ class Cell:
         ok, checks = check.verdict(numbers, limits)
         ctrl = None
         if control:
-            low = reference.last_logits(self.arch, self.params, inputs, "fp8", self.eps)
+            low = self.model.last_logits(self.arch, self.params, inputs, "fp8", self.eps)
             ctrl = check.compared([int(torch.argmax(x)) for x in low], low, ref)
         return ok, checks, numbers, ctrl, [r.tokens for r in picked]
 

@@ -45,32 +45,30 @@ def _traced(run):
 
 
 def prefill_mfu_pct(run):
-    """Model operations of the window's prefills (``counts.prefill_flops``)
-    over the device's busy seconds at the bf16 peak."""
+    """Model operations of the window's prefills (the model module's
+    ``prefill_flops``) over the device's busy seconds at the bf16 peak."""
     tr = _traced(run)
     if tr is None:
         return None
     busy = trace.busy_s(tr.events, tr.lo_ns, tr.hi_ns)
-    flops = sum(counts.prefill_flops(run.arch, r.req.text_len, r.req.patches)
+    flops = sum(run.model.prefill_flops(run.arch, r.req.text_len, r.req.patches)
                 for r in _done(run))
     return 100.0 * flops / (busy * counts.PEAK_BF16_FLOPS) if busy > 0 else None
 
 
-def attention_roofline_pct(run):
-    """Σ over the window's attention calls of each call's bound
-    (``counts.attention_bound_s``) over Σ of the device time of the
-    kernels that implement attention (``metrics/patterns/attention``)."""
+def roofline_pct(run, group: str):
+    """Σ over the window's prefills of the least device time of one kernel
+    group's work (the model module's ``bounds``) over Σ of the device time
+    of the kernels that implement it (``metrics/patterns/<group>``)."""
     tr = _traced(run)
     if tr is None:
         return None
-    pats = spec.patterns("attention")
+    pats = spec.patterns(group)
     t = sum(e - s for name, s, e in tr.events if any(p.search(name) for p in pats))
     if t <= 0:
         return None
-    a = run.arch
-    bound = sum(a["num_layers"] * counts.attention_bound_s(
-        r.req.tokens, a["num_heads"], a["num_kv_heads"], a["head_dim"])
-        for r in _done(run))
+    bound = sum(run.model.bounds(run.arch, r.req.text_len, r.req.patches)[group]
+                for r in _done(run))
     return 100.0 * bound / (t * 1e-9)
 
 

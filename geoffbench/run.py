@@ -46,6 +46,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "repro")  # whole top-level names
 class Run:
     """What the metric readers see."""
     arch: dict
+    model: object  # the configuration's model module (``spec.model``)
     mix: dict
     win: object
     setup_s: float
@@ -67,7 +68,7 @@ def measure(cell, seed: int, seconds: float, trace: bool, t_start: float,
     win = cell.window(sched, seed, seconds, trace=trace)
     cuda = cell.device.type == "cuda"
     peak = torch.cuda.max_memory_allocated(cell.device) if cuda else 0
-    run = Run(cell.arch, cell.mix, win, win.t0 - t_start)
+    run = Run(cell.arch, cell.model, cell.mix, win, win.t0 - t_start)
     kind = "per_layer" if trace else "end_to_end"
     metrics = {}
     for m in spec.metrics(bench, cell.name, kind):

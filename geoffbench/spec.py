@@ -1,6 +1,7 @@
 """``BENCHMARK.json`` and the files it names. A cell, configuration,
-traffic mix or per-layer metric is found by its name alone, so a later
-change adds one by adding its files and its entry, and edits none."""
+model module, traffic mix or per-layer metric is found by its name alone,
+so a later change adds one by adding its files and its entry, and edits
+none."""
 from __future__ import annotations
 
 import importlib.util
@@ -53,15 +54,31 @@ def metrics(bench: dict, workload_name: str, kind: str) -> list:
             if "workloads" not in m or workload_name in m["workloads"]]
 
 
-def reader(metric_name: str):
-    """``metrics/<name>.py``'s ``read(run)``: the metric's value, or None
-    where the run holds nothing for it to read."""
-    path = HERE / "metrics" / f"{metric_name}.py"
-    mod_name = "geoffbench_metric_" + re.sub(r"\W", "_", metric_name)
+def _load(path: Path, prefix: str):
+    mod_name = prefix + re.sub(r"\W", "_", path.stem)
     spec = importlib.util.spec_from_file_location(mod_name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def reader(metric_name: str):
+    """``metrics/<name>.py``'s ``read(run)``: the metric's value, or None
+    where the run holds nothing for it to read."""
+    return _load(HERE / "metrics" / f"{metric_name}.py", "geoffbench_metric_").read
+
+
+def model(conf: dict):
+    """The configuration's model module, ``models/<conf["model"]>.py``
+    (``dense`` where the file names none): its weight layout, plain
+    reference, operation counts and kernel bounds (``models/__init__.py``)."""
+    name = conf.get("model", "dense")
+    path = HERE / "models" / f"{name}.py"
+    if not path.is_file():
+        have = sorted(p.stem for p in (HERE / "models").glob("*.py")
+                      if p.stem != "__init__")
+        raise KeyError(f"no model module named {name!r}; have {have}")
+    return _load(path, "geoffbench_model_")
 
 
 def patterns(group: str) -> list:

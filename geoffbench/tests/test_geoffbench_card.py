@@ -4,7 +4,7 @@ them. Skips without a CUDA card."""
 import pytest
 import torch
 
-from geoffbench import check, reference, spec, traffic, weights
+from geoffbench import check, spec, traffic, weights
 
 
 @pytest.mark.card
@@ -14,8 +14,10 @@ def test_control_reads_far_above_the_program_at_full_width(card, config, lengths
     from repro_torch.configs.base import ArchConfig
     from repro_torch.models import model as M
     bench = spec.load_benchmark()
-    arch = dict(spec.config(bench, config)["port"], num_layers=2)
-    params = weights.make(arch, 2**31 + 77, card)
+    conf = spec.config(bench, config)
+    model = spec.model(conf)
+    arch = dict(conf["port"], num_layers=2)
+    params = weights.make(model.layout(arch), 2**31 + 77, card)
     cfg = ArchConfig(**dict(arch, block_pattern=tuple(arch["block_pattern"])))
     inputs, got = [], []
     for i, n in enumerate(lengths):
@@ -27,8 +29,8 @@ def test_control_reads_far_above_the_program_at_full_width(card, config, lengths
         with torch.no_grad():
             got.append(M.prefill(cfg, params, batch)[0][0].float())
         inputs.append(inp)
-    ref = reference.last_logits(arch, params, inputs, "float32", 1e-6)
-    low = reference.last_logits(arch, params, inputs, "fp8", 1e-6)
+    ref = model.last_logits(arch, params, inputs, "float32", 1e-6)
+    low = model.last_logits(arch, params, inputs, "fp8", 1e-6)
     prog = check.compared([int(g.argmax()) for g in got], got, ref)
     ctrl = check.compared([int(x.argmax()) for x in low], low, ref)
     assert prog["label_not_argmax"] == 0

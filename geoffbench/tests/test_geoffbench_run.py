@@ -167,7 +167,6 @@ def test_fault_data_dependency_altered_on_delivery(monkeypatch):
                                   "llava-next-34b.page-classify.open"])
 def test_control_in_the_programs_place_is_not_correct(name, monkeypatch):
     """The fp8 reference served in place of the program's prefill."""
-    from geoffbench import reference
     from repro_torch.models import model as M
     cell, bench = small_cell(name)
 
@@ -175,7 +174,7 @@ def test_control_in_the_programs_place_is_not_correct(name, monkeypatch):
         inp = {"tokens": batch["tokens"][0]}
         if "patches" in batch:
             inp["patches"] = batch["patches"][0]
-        low = reference.last_logits(cell.arch, params, [inp], "fp8", cell.eps)[0]
+        low = cell.model.last_logits(cell.arch, params, [inp], "fp8", cell.eps)[0]
         return low[None], {}
     monkeypatch.setattr(M, "prefill", prefill)
     res, _ = R.measure(cell, SEED, 1.5, False, time.perf_counter(), SMOKE_LIMITS, bench)
@@ -208,10 +207,26 @@ print(json.dumps(out))
 '''
 
 
+TINY_MODEL = '''
+"""The dense decoder, with the GEMMs as a kernel group of their own."""
+from geoffbench import counts
+from geoffbench.models import dense
+
+layout, last_logits, prefill_flops = dense.layout, dense.last_logits, dense.prefill_flops
+
+
+def bounds(arch, text_len, patches=0):
+    return dict(dense.bounds(arch, text_len, patches),
+                gemm=prefill_flops(arch, text_len, patches) / counts.PEAK_BF16_FLOPS)
+'''
+
+
 def test_a_cell_is_added_by_files_and_entries_alone(tmp_path):
-    """A configuration, a traffic mix, a per-layer metric and its limits
-    added as new files, and their entries added to BENCHMARK.json: the
-    harness runs the new cell and reads the new metric, no file edited."""
+    """A configuration with a model module of its own, a traffic mix, two
+    per-layer metrics (one the roofline of the module's own kernel group,
+    named by a pattern file) and its limits added as new files, and their
+    entries added to BENCHMARK.json: the harness runs the new cell and
+    reads the new metrics, no file edited."""
     root = tmp_path / "checkout"
     shutil.copytree(ROOT / "geoffbench", root / "geoffbench",
                     ignore=shutil.ignore_patterns("__pycache__", "tests"))
@@ -221,6 +236,13 @@ def test_a_cell_is_added_by_files_and_entries_alone(tmp_path):
     before = {p: p.read_bytes() for p in g.rglob("*") if p.is_file()}
     conf = json.loads((g / "configs" / "qwen3-32b.json").read_text())
     conf["name"] = conf["port"]["name"] = "tiny-7"
+    conf["model"] = "tiny7"
+    (g / "models" / "tiny7.py").write_text(TINY_MODEL)
+    (g / "metrics" / "patterns" / "gemm").mkdir()
+    (g / "metrics" / "patterns" / "gemm" / "fake.txt").write_text("^k$\n")
+    (g / "metrics" / "fake.gemm_roofline.py").write_text(
+        "from geoffbench.readers import roofline_pct\n\n\n"
+        "def read(run):\n    return roofline_pct(run, 'gemm')\n")
     conf["port"].update(num_layers=2, d_model=64, num_heads=4, num_kv_heads=2,
                         head_dim=16, d_ff=128, vocab_size=300)
     (g / "configs" / "tiny-7.json").write_text(json.dumps(conf))
@@ -243,6 +265,9 @@ def test_a_cell_is_added_by_files_and_entries_alone(tmp_path):
     bench["per_layer"].append({"name": "fake.requests_seen", "unit": "1", "better": "higher",
                                "source": "program_counter", "layer": "workflow engine",
                                "moves": "request_p90_s", "workloads": ["tiny-7.doc-burst"]})
+    bench["per_layer"].append({"name": "fake.gemm_roofline", "unit": "%", "better": "higher",
+                               "source": "device_trace", "layer": "kernels",
+                               "moves": "request_p90_s", "workloads": ["tiny-7.doc-burst"]})
     (root / "BENCHMARK.json").write_text(json.dumps(bench))
     p = subprocess.run([sys.executable, "-c", ADDED_CELL, str(root), str(ROOT / "src")],
                        cwd=root, capture_output=True, text=True, timeout=300)
@@ -250,6 +275,7 @@ def test_a_cell_is_added_by_files_and_entries_alone(tmp_path):
     out = json.loads(p.stdout.strip().splitlines()[-1])
     assert set(out["False"]["metrics"]) == {"request_p90_s", "setup_s"}
     assert out["True"]["metrics"]["fake.requests_seen"]["value"] == out["True"]["attempted"]
+    assert out["True"]["metrics"]["fake.gemm_roofline"]["value"] > 0
     assert out["False"]["correct"] is True
     for path, data in before.items():
         assert path.read_bytes() == data, f"{path} was edited"
@@ -270,6 +296,9 @@ if mode == "run":
     import geoffbench.sweep, geoffbench.calibrate  # noqa: F401
 else:
     import geoffbench.reference  # noqa: F401
+    from geoffbench import spec
+    for f in (spec.HERE / "models").glob("[!_]*.py"):
+        spec.model({"model": f.stem})
 print(json.dumps(sorted({m.split(".", 1)[0] for m in sys.modules})))
 '''
 
@@ -278,7 +307,8 @@ print(json.dumps(sorted({m.split(".", 1)[0] for m in sys.modules})))
 def test_nothing_of_jax_or_the_jax_package_is_loaded(mode, checkout):
     """A run of each cell (set-up, window, metrics, check) loads no module
     whose top-level name is jax, jaxlib, flax or repro, compared whole; the
-    reference alone loads nothing of the program either."""
+    reference and the model modules alone load nothing of the program
+    either."""
     p = subprocess.run([sys.executable, "-c", LOADED, str(ROOT), mode, str(checkout)],
                        capture_output=True, text=True, timeout=300)
     assert p.returncode == 0, p.stderr[-3000:]
@@ -290,15 +320,24 @@ def test_nothing_of_jax_or_the_jax_package_is_loaded(mode, checkout):
         assert "repro_torch" not in top and "geoffbench" in top
 
 
-def test_reference_imports_only_torch():
-    tree = ast.parse((ROOT / "geoffbench" / "reference.py").read_text())
+@pytest.mark.parametrize("path", ["reference.py"] + sorted(
+    f"models/{f.name}" for f in (ROOT / "geoffbench" / "models").glob("*.py")))
+def test_reference_imports_only_torch(path):
+    """The reference's building blocks import torch alone; a model module
+    torch and the benchmark's yardstick."""
+    tree = ast.parse((ROOT / "geoffbench" / path).read_text())
     names = set()
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             names |= {a.name for a in node.names}
         elif isinstance(node, ast.ImportFrom):
             names.add(node.module)
-    assert names == {"__future__", "contextlib", "torch", "torch.nn.functional"}
+    if path == "reference.py":
+        assert names == {"__future__", "contextlib", "torch"}
+    else:
+        assert names <= {"__future__", "math", "torch", "torch.nn.functional",
+                         "geoffbench", "geoffbench.counts", "geoffbench.reference",
+                         "geoffbench.weights"}, names
 
 
 def test_command_refuses_without_a_card(monkeypatch, capsys):
